@@ -1,10 +1,12 @@
 """Carry field parameters between the JAX package and the port.
 
 Both sides keep parameters as flat dicts under the same key names
-(``table``, ``sigma_w0``, ``sigma_w1``, ``color_w0``, ``color_w1``,
-``color_w2``), and both write them as the same npz snapshot
-(``nerf/api.py`` ``save_snapshot``), so conversion is a dtype-preserving
-copy between numpy arrays and tensors.
+(``grid`` for the voxel field or ``table`` for the hash field, then
+``sigma_w0``, ``sigma_w1``, ``color_w0``, ``color_w1``, ``color_w2``), and
+both write them as the same npz snapshot (``nerf/api.py``
+``save_snapshot``), so conversion is a dtype-preserving copy between numpy
+arrays and tensors.  Only parameters cross: a snapshot carries no
+optimizer state on either side.
 """
 
 from __future__ import annotations

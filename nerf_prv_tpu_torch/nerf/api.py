@@ -1,21 +1,23 @@
 """High-level NeRF API mirroring the reference's ``run.py`` semantics.
 
-Counterpart of ``nerf_prv_tpu/nerf/api.py``, serving half: load a
+Counterpart of ``nerf_prv_tpu/nerf/api.py``: train a field or load a
 snapshot, score it against a test set, render screenshots.
 
+- :func:`train_nerf`        — ``--train --scene ... --n_steps ...``
 - :func:`eval_nerf`         — ``--test_transforms ... --save_metrics ...``
 - :func:`screenshot_nerf`   — ``--screenshot_transforms ... --screenshot_dir``
-- :func:`run`               — the CLI-equivalent driver, from a snapshot.
+- :func:`run`               — all of the above in one call, as the command line does.
 
-Training (``train_nerf``, and ``run`` without a snapshot), mesh export and
-video are not ported yet and raise NotImplementedError.  Renders and
-metrics run on the device of the parameters.
+Mesh export and video are not ported yet.  Training runs on the ``device``
+the caller names (the card by default); renders and metrics run on the
+device of the parameters.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +27,21 @@ from .metrics import evaluate_pair, mse2psnr
 from .model import NerfConfig
 from .rays import RayDataset, load_dataset
 from .render import build_render_aux, render_views
+from .train import train
+
+
+def train_nerf(
+    scene_json: str,
+    cfg: Optional[NerfConfig] = None,
+    seed: int = 0,
+    init_from: Optional[dict] = None,
+    device="cuda",
+) -> Tuple[dict, RayDataset]:
+    """Train a field on the scene's images; returns (params, dataset)."""
+    cfg = cfg or NerfConfig()
+    dataset = load_dataset(scene_json, with_images=True)
+    params, _ = train(dataset, cfg, seed=seed, init_from=init_from, device=device)
+    return params, dataset
 
 
 def save_snapshot(path: str, params: dict) -> None:
@@ -155,29 +172,29 @@ def screenshot_nerf(params, render_json: str, out_dir: str, cfg: Optional[NerfCo
 
 def run(
     scene: str,
+    n_steps: Optional[int] = None,
     test_transforms: Optional[str] = None,
     save_metrics_path: Optional[str] = None,
     screenshot_transforms: Optional[str] = None,
     screenshot_dir: Optional[str] = None,
     cfg: Optional[NerfConfig] = None,
+    seed: int = 0,
     load_snapshot_path: Optional[str] = None,
     save_snapshot_path: Optional[str] = None,
     device="cuda",
 ) -> Optional[Dict[str, float]]:
-    """In-process equivalent of one ``run.py`` invocation, serving a
-    snapshot: load it onto ``device``, then score and screenshot.
-
-    ``scene`` is the training set, and training is not ported yet: without
-    ``load_snapshot_path`` this raises NotImplementedError.  The
-    reference's training, mesh and video arguments are not taken yet.
+    """In-process equivalent of one ``run.py`` invocation, on ``device``:
+    train on ``scene`` (or load a snapshot instead), then score and
+    screenshot.  The reference's mesh and video arguments are not taken
+    yet.
     """
-    if not load_snapshot_path:
-        raise NotImplementedError(
-            f"training on {scene!r} is not ported yet; "
-            "pass load_snapshot_path to serve a snapshot"
-        )
     cfg = cfg or NerfConfig()
-    params = load_snapshot(load_snapshot_path, cfg, device=device)
+    if n_steps is not None:
+        cfg = dataclasses.replace(cfg, n_steps=n_steps)
+    if load_snapshot_path:
+        params = load_snapshot(load_snapshot_path, cfg, device=device)
+    else:
+        params, _ = train_nerf(scene, cfg, seed=seed, device=device)
     if save_snapshot_path:
         save_snapshot(save_snapshot_path, params)
     metrics = None

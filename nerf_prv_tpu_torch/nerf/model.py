@@ -1,9 +1,9 @@
-"""The neural field: hash encoding + small MLPs, in PyTorch.
+"""The neural field: a spatial encoding + small MLPs, in PyTorch.
 
 Counterpart of ``nerf_prv_tpu/nerf/model.py``.  ``NerfConfig`` keeps every
 field, default and check of the reference; the comments there record why
-each default was chosen.  Only the hash field (``field_impl="hash"``) is
-ported so far: the voxel field raises NotImplementedError.
+each default was chosen.  ``field_impl="voxel"`` (the default) dispatches
+to :mod:`.voxelfield`, ``"hash"`` to the multiresolution hash encoding.
 
 Parameters are a dict of tensors under the reference's key names, so
 snapshots interchange (``convert.py``).
@@ -18,6 +18,7 @@ import torch
 
 from ..ops.fused import encode_fused
 from .hashgrid import HashGridConfig, encode, init_table
+from .voxelfield import init_voxel_params, voxel_density_raw, voxel_field
 
 
 @dataclass(frozen=True)
@@ -78,12 +79,6 @@ class NerfConfig:
             )
 
 
-def _voxel_not_ported():
-    return NotImplementedError(
-        "field_impl='voxel' is not ported yet; use field_impl='hash'"
-    )
-
-
 def sh_encode_deg4(d: torch.Tensor) -> torch.Tensor:
     """Real spherical harmonics up to degree 3 (16 coeffs), unit dirs (N,3)."""
     x, y, z = d[..., 0], d[..., 1], d[..., 2]
@@ -115,14 +110,14 @@ def sh_encode_deg4(d: torch.Tensor) -> torch.Tensor:
 def init_params(
     generator: torch.Generator, cfg: NerfConfig, device="cuda"
 ) -> Dict[str, torch.Tensor]:
-    """Random hash-field parameters drawn from ``generator``.
+    """Random field parameters drawn from ``generator``.
 
     Same shapes and distributions as the reference's ``init_params``
-    (Glorot-uniform MLPs, +-1e-4 table); the numbers differ because the
-    two frameworks' generators differ.
+    (Glorot-uniform MLPs, +-1e-4 table or grid); the numbers differ
+    because the two frameworks' generators differ.
     """
     if cfg.field_impl == "voxel":
-        raise _voxel_not_ported()
+        return init_voxel_params(generator, cfg, device=device)
     in_dim = cfg.grid.out_dim
     h = cfg.hidden
     geo = cfg.geo_features + 1
@@ -172,7 +167,7 @@ def radiance(params, geo_feats, dirs, cfg: NerfConfig):
 def field(params, x, dirs, cfg: NerfConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Positions + dirs -> (sigma (N,), rgb (N,3))."""
     if cfg.field_impl == "voxel":
-        raise _voxel_not_ported()
+        return voxel_field(params, x, dirs, cfg)
     raw, geo = density_raw(params, x, cfg)
     rgb = radiance(params, geo, dirs, cfg)
     return torch.exp(raw), rgb
@@ -180,6 +175,7 @@ def field(params, x, dirs, cfg: NerfConfig) -> Tuple[torch.Tensor, torch.Tensor]
 
 def density(params, x, cfg: NerfConfig):
     if cfg.field_impl == "voxel":
-        raise _voxel_not_ported()
+        raw, _ = voxel_density_raw(params, x, cfg)
+        return torch.exp(raw)
     raw, _ = density_raw(params, x, cfg)
     return torch.exp(raw)

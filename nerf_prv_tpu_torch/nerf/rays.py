@@ -93,6 +93,19 @@ def pixel_dirs_cam(camera: CameraConfig, u: torch.Tensor, v: torch.Tensor) -> to
     return d / torch.linalg.norm(d, dim=-1, keepdim=True)
 
 
+def rays_from_pixels(dataset_rot, dataset_org, camera: CameraConfig, frame_idx, u, v):
+    """Batched ray origins/dirs in grid space for pixel (u, v) of given frames.
+
+    ``dataset_rot``/``dataset_org``: (F,3,3), (F,3) tensors.  Directions
+    are unit-norm in grid space.
+    """
+    d_cam = pixel_dirs_cam(camera, u, v)  # (N, 3)
+    rot = dataset_rot[frame_idx]  # (N, 3, 3)
+    d_grid = torch.einsum("nij,nj->ni", rot, d_cam)
+    d_grid = d_grid / torch.linalg.norm(d_grid, dim=-1, keepdim=True)
+    return dataset_org[frame_idx], d_grid
+
+
 def ray_aabb(origins, dirs, lo=0.0, hi=1.0):
     """Entry/exit distances of rays with the [lo,hi]^3 grid cube."""
     inv = 1.0 / torch.where(torch.abs(dirs) < 1e-9, torch.full_like(dirs, 1e-9), dirs)

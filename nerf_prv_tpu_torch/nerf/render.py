@@ -1,28 +1,39 @@
-"""Volume rendering, eval half: probe-tightened fixed-step march + compositing.
+"""Volume rendering: probe-tightened fixed-step march + compositing.
 
-Counterpart of ``nerf_prv_tpu/nerf/render.py`` for deterministic renders
-of the hash field, which has no precomputed occupancy aux: each ray probes
-density at ``render_coarse`` midpoints, tightens its interval, and marches
-a flat ``render_n_samples`` (bumped to 32 by default) inside it.
+Counterpart of ``nerf_prv_tpu/nerf/render.py``.  Deterministic renders
+(no ``jitter``) tighten each ray's interval with a probe and march a flat
+``render_n_samples`` inside it: the voxel field probes two precomputed
+occupancy tables (:class:`RenderAux`: a pooled block-max volume, then a
+corner-density table read through the row-gather kernel), the hash field
+the field MLP at ``render_coarse`` midpoints.  The training march (a
+``jitter`` tensor) draws stratified samples, tightened by a
+``train_coarse``-sample MLP probe that no gradient flows through.
+Importance resampling (``n_importance > 0``) and the periodically baked
+train probe (``train_probe_refresh > 0``) are not ported yet.
 
 Reference names map one to one, except that the reference's ``_jit_``
 prefixes are dropped (PyTorch runs eagerly): ``_assemble_tiles`` is
 ``_jit_assemble_tiles``, ``_render_tiles`` is ``_jit_render_tiles``.  The
 reference's speculative chunk bounds hide readback latency of a remote
-TPU; here every path reads its hit count directly, so ``defer=True``
+TPU; here every path reads its counts directly, so ``defer=True``
 returns a ``finish()`` that always returns None.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
+from ..ops.row_gather import row_gather
 from .model import NerfConfig, density, field
 from .rays import pixel_dirs_cam, ray_aabb, ray_sphere
+from .voxelfield import cell_and_frac, corner_weights, lattice_corner_raw
 
 MIN_TRANSMITTANCE = 1e-4  # ≙ render_min_transmittance (run.py:235)
+
+_PROBE_BLOCK = 2  # cells per pooled occupancy block (render aux level 1)
 
 # NerfConfig.render_n_samples dataclass default; render_rays bumps only this
 # value to 32 on the aux-less path (an explicit user setting is honored)
@@ -34,14 +45,70 @@ _RENDER_TILE = 128  # rays per compaction tile (render_views sphere path)
 _MISS_RAY = (0.5, 0.5, 2.0, 0.0, 0.0, 1.0)
 
 
-def build_render_aux(params, cfg: NerfConfig):
-    """Occupancy tables for the two-level render probe: voxel field only.
+class RenderAux(NamedTuple):
+    """Per-render-pass precomputed occupancy tables (see build_render_aux)."""
 
-    Returns None wherever the reference does (hash field, cube bound).
+    cell_raw: torch.Tensor  # (g^3, 8) bf16: raw log-density at cell corners
+    pooled: torch.Tensor    # (nb, nb, nb) f32: dilated block-max sigma
+
+
+@torch.no_grad()
+def build_render_aux(params, cfg: NerfConfig) -> Optional[RenderAux]:
+    """Precompute the two-level occupancy tables for fast render probing.
+
+    Level 2 is raw density at every cell corner (one dense MLP pass);
+    level 1 is sigma's per-block max, dilated by one block so that a
+    nearest-block lookup is conservative for samples whose probe segment
+    overhangs the block.  Rebuilt per render pass: the field is frozen
+    while rendering.  None wherever the reference returns None (hash
+    field, cube bound).
     """
     if cfg.field_impl != "voxel" or cfg.bound != "sphere":
         return None
-    raise NotImplementedError("the voxel field's render aux is not ported yet")
+    g = cfg.voxel_grid_size
+    cs = lattice_corner_raw(params, cfg)  # (g^3, 8) f32
+    cell_max = torch.exp(torch.amax(cs, dim=-1)).reshape(g, g, g)
+    # cells with any index g-1 are never gathered (cell_and_frac caps the
+    # cell at g-2); their clipped-corner sigmas would otherwise leak
+    # phantom occupancy into the pooled volume at the upper boundary
+    cell_max[g - 1, :, :] = 0.0
+    cell_max[:, g - 1, :] = 0.0
+    cell_max[:, :, g - 1] = 0.0
+    nb = -(-g // _PROBE_BLOCK)
+    pad = nb * _PROBE_BLOCK - g
+    cm = F.pad(cell_max, (0, pad) * 3)
+    pooled = cm.reshape(nb, _PROBE_BLOCK, nb, _PROBE_BLOCK, nb, _PROBE_BLOCK).amax(dim=(1, 3, 5))
+    # 3x3x3 dilation over an edge-padded copy
+    p = F.pad(pooled[None, None], (1,) * 6, mode="replicate")
+    dil = F.max_pool3d(p, kernel_size=3, stride=1)[0, 0]
+    return RenderAux(cs.to(torch.bfloat16), dil)
+
+
+def _pooled_lookup(pooled: torch.Tensor, pos: torch.Tensor, g: int) -> torch.Tensor:
+    """Nearest-block values for pos (N, S, 3) in [0,1].
+
+    The reference looks the block up with one-hot bfloat16 matmuls, which
+    round the pooled sigmas to bfloat16; that rounding is kept here, or
+    rays near the occupancy threshold would flip.
+    """
+    nb = pooled.shape[0]
+    n, s = pos.shape[:2]
+    b = torch.clamp(
+        (pos.reshape(-1, 3) * (g - 1) / _PROBE_BLOCK).to(torch.int64), 0, nb - 1
+    )
+    flat = pooled.to(torch.bfloat16).to(torch.float32).reshape(-1)
+    return flat[(b[:, 0] * nb + b[:, 1]) * nb + b[:, 2]].reshape(n, s)
+
+
+def _cell_sigma_at(cell_raw: torch.Tensor, pos: torch.Tensor, g: int) -> torch.Tensor:
+    """Sigma from trilinear RAW log-density interpolation at pos (N, S, 3):
+    one 16-byte row gather per sample (exp after interpolation, the
+    conservative side for saturation clamping)."""
+    n, s = pos.shape[:2]
+    row_idx, frac = cell_and_frac(pos.reshape(-1, 3), g)
+    rows = row_gather(cell_raw, row_idx).to(torch.float32)  # (M, 8)
+    w = corner_weights(frac)
+    return torch.exp(torch.sum(rows * w, dim=-1)).reshape(n, s)
 
 
 def _eval_field(params, pos, dirs_b, cfg):
@@ -52,12 +119,33 @@ def _eval_field(params, pos, dirs_b, cfg):
     return sigma.reshape(n, ns), rgb.reshape(n, ns, 3)
 
 
+class _ExclusiveCumprod(torch.autograd.Function):
+    """``T[:, i] = prod(a[:, :i])`` along the last axis of (N, S).
+
+    ``torch.cumprod``'s own backward reads a flag back to the host to look
+    for zeros in its input, which would stall every training step; every
+    ``a`` here is at least 1e-10, so the quotient form needs no such look.
+    """
+
+    @staticmethod
+    def forward(ctx, a):
+        ones = torch.ones_like(a[:, :1])
+        trans = torch.cat([ones, torch.cumprod(a, dim=-1)[:, :-1]], dim=-1)
+        ctx.save_for_backward(a, trans)
+        return trans
+
+    @staticmethod
+    def backward(ctx, g):
+        a, trans = ctx.saved_tensors
+        w = g * trans
+        # sum of w over the samples after each one
+        after = torch.flip(torch.cumsum(torch.flip(w, dims=[-1]), dim=-1), dims=[-1]) - w
+        return after / a
+
+
 def _composite(sigma, rgb, deltas):
-    n = sigma.shape[0]
     alpha = 1.0 - torch.exp(-sigma * deltas)
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
-    ones = torch.ones((n, 1), dtype=trans.dtype, device=trans.device)
-    trans = torch.cat([ones, trans[:, :-1]], dim=-1)
+    trans = _ExclusiveCumprod.apply(1.0 - alpha + 1e-10)
     # transmittance cutoff ≙ ngp's early ray termination
     weights = torch.where(trans > MIN_TRANSMITTANCE, trans * alpha, 0.0)
     out_rgb = torch.sum(weights[..., None] * rgb, dim=1)
@@ -104,38 +192,121 @@ def _clamp_occupied(sigma_c, tmin, span_c, nc):
     return tmin + lo * span_c, tmin + hi * span_c, any_occ
 
 
-def render_rays(params, origins, dirs, cfg: NerfConfig, aux=None):
+def _probe_level1(aux: RenderAux, origins, dirs, tmin, tmax, valid, cfg):
+    """Level-1 render probe: render_probe_coarse samples against the
+    dilated block-max volume.  Returns the tightened (t1min, t1max, any1).
+    """
+    g = cfg.voxel_grid_size
+    # level-1 detection reach per sample is (1 + 2 dilation) * block cells;
+    # keep sample spacing below it whatever the grid size (a chord spans up
+    # to ~1.04 * (g-1) cells)
+    reach = 3 * _PROBE_BLOCK
+    n1 = max(cfg.render_probe_coarse, -(-int(1.04 * (g - 1)) // reach))
+    span = tmax - tmin
+
+    base1 = (torch.arange(n1, dtype=torch.float32, device=tmin.device)[None, :] + 0.5) / n1
+    ts1 = tmin[:, None] + base1 * span[:, None]
+    pos1 = torch.clamp(
+        origins[:, None, :] + dirs[:, None, :] * ts1[..., None], 0.0, 1.0 - 1e-6
+    )
+    pool = _pooled_lookup(aux.pooled, pos1, g)
+    delta1 = span[:, None] / n1
+    occ1 = (1.0 - torch.exp(-pool * delta1) > 1e-3) & valid[:, None]
+    any1 = torch.any(occ1, dim=-1)
+    first1 = _first_true(occ1).to(torch.float32)
+    last1 = (n1 - 1 - _first_true(torch.flip(occ1, dims=[-1]))).to(torch.float32)
+    # half-segment margin; the block dilation already covers overhang
+    lo1 = torch.clamp_min(first1 - 0.5, 0.0) / n1
+    hi1 = torch.clamp_max(last1 + 1.5, n1) / n1
+    return tmin + lo1 * span, tmin + hi1 * span, any1
+
+
+def _probe_level2(aux: RenderAux, origins, dirs, t1min, t1max, cfg):
+    """Level-2 render probe: render_probe_fine samples of trilinear
+    corner density, one 16-byte row gather each.  Same saturation-aware
+    clamping as ``_tighten_interval``.
+    """
+    n2 = cfg.render_probe_fine
+    span2 = t1max - t1min
+    base2 = (torch.arange(n2, dtype=torch.float32, device=t1min.device)[None, :] + 0.5) / n2
+    ts2 = t1min[:, None] + base2 * span2[:, None]
+    pos2 = torch.clamp(
+        origins[:, None, :] + dirs[:, None, :] * ts2[..., None], 0.0, 1.0 - 1e-6
+    )
+    sig2 = _cell_sigma_at(aux.cell_raw, pos2, cfg.voxel_grid_size)
+    return _clamp_occupied(sig2, t1min, span2, n2)
+
+
+def _tighten_interval_aux(aux: RenderAux, origins, dirs, tmin, tmax, valid, cfg):
+    """Two-level render probe (level-1 pooled + level-2 corner density),
+    the fused form; the tile render calls the levels separately with a
+    compaction in between."""
+    t1min, t1max, any1 = _probe_level1(aux, origins, dirs, tmin, tmax, valid, cfg)
+    tlo, thi, any2 = _probe_level2(aux, origins, dirs, t1min, t1max, cfg)
+    return tlo, thi, any1 & any2
+
+
+def render_rays(params, origins, dirs, cfg: NerfConfig, aux=None, jitter=None):
     """March rays through the bounded volume; returns (rgb (N,3), alpha (N,)).
 
-    The deterministic (eval) march: midpoint samples, no jitter.  Training's
-    stratified and importance branches come with the trainer.
+    Without ``jitter`` this is the deterministic (eval) march: midpoint
+    samples inside the probe-tightened interval, through ``aux`` when one
+    is given.  A ``jitter`` (N, cfg.n_samples) tensor of uniforms, drawn
+    by the caller, selects the training march (the port has no ``key``).
     """
-    if aux is not None:
-        raise NotImplementedError("aux-probed renders need the voxel field")
-    ns = cfg.render_n_samples or cfg.n_samples
-    if cfg.render_n_samples == _RENDER_NS_DEFAULT:
-        # the aux-less MLP probe gets the larger default count (the
-        # reference measured -0.08 dB at 24 vs 32); an explicit
-        # render_n_samples is honored
-        ns = max(ns, 32)
+    training = jitter is not None
+    if training and cfg.n_importance > 0:
+        raise NotImplementedError("n_importance > 0 (importance resampling) is not ported yet")
+    if training and cfg.train_coarse > 0 and cfg.train_probe_refresh > 0:
+        raise NotImplementedError("train_probe_refresh > 0 (the baked train probe) is not ported yet")
+    if training:
+        ns = cfg.n_samples
+    else:
+        ns = cfg.render_n_samples or cfg.n_samples
+        if aux is None and cfg.render_n_samples == _RENDER_NS_DEFAULT:
+            # the aux-less MLP probe gets the larger default count (the
+            # reference measured -0.08 dB at 24 vs 32); an explicit
+            # render_n_samples is honored
+            ns = max(ns, 32)
     if cfg.bound == "sphere":
         tmin, tmax, valid = ray_sphere(origins, dirs)
     else:
         tmin, tmax, valid = ray_aabb(origins, dirs)
 
-    if cfg.render_coarse > 0:
-        tmin, tmax, any_occ = _tighten_interval(
-            params, origins, dirs, tmin, tmax, valid, cfg.render_coarse, cfg
-        )
+    if not training and cfg.render_coarse > 0:
+        if aux is not None:
+            tmin, tmax, any_occ = _tighten_interval_aux(aux, origins, dirs, tmin, tmax, valid, cfg)
+        else:
+            tmin, tmax, any_occ = _tighten_interval(
+                params, origins, dirs, tmin, tmax, valid, cfg.render_coarse, cfg
+            )
         valid = valid & any_occ
+    elif training and cfg.train_coarse > 0:
+        # the same probe for training; no gradient flows through it.  Rays
+        # whose occupied probes vanished fall back to the full chord so
+        # density can (re)grow anywhere
+        with torch.no_grad():
+            t_lo, t_hi, any_occ = _tighten_interval(
+                params, origins, dirs, tmin, tmax, valid, cfg.train_coarse, cfg
+            )
+            tmin = torch.where(any_occ, t_lo, tmin)
+            tmax = torch.where(any_occ, t_hi, tmax)
 
-    span = (tmax - tmin) / ns
-    base = torch.arange(ns, dtype=torch.float32, device=tmin.device)[None, :]
-    ts = tmin[:, None] + (base + 0.5) * span[:, None]
-    pos = origins[:, None, :] + dirs[:, None, :] * ts[..., None]  # (N, S, 3)
+    return _march_body(
+        params, origins, dirs, tmin, tmax, valid, cfg, ns, 0.5 if jitter is None else jitter
+    )
+
+
+def _march_body(params, o, d, tlo, thi, occ, cfg, ns, jitter=0.5):
+    """Fine march of ``ns`` samples inside [t_lo, t_hi] -> (rgb, alpha);
+    rays with ``occ`` false composite to exact zeros."""
+    span = (thi - tlo) / ns
+    base = torch.arange(ns, dtype=torch.float32, device=tlo.device)[None, :]
+    ts = tlo[:, None] + (base + jitter) * span[:, None]
+    pos = o[:, None, :] + d[:, None, :] * ts[..., None]  # (N, S, 3)
     pos = torch.clamp(pos, 0.0, 1.0 - 1e-6)
-    sigma, rgb = _eval_field(params, pos, dirs, cfg)
-    sigma = sigma * valid[:, None]
+    sigma, rgb = _eval_field(params, pos, d, cfg)
+    sigma = sigma * occ[:, None]
     out_rgb, out_alpha, _ = _composite(sigma, rgb, span[:, None].expand_as(sigma))
     return out_rgb, out_alpha
 
@@ -173,13 +344,17 @@ def render_views(
 
     All frames' rays form one stream, compacted so that only rays that hit
     the bounding sphere are marched: by 128-ray tile for frames at least
-    512 wide, by ray for narrower ones.  ``defer=True`` returns
+    512 wide, by ray for narrower ones.  With an ``aux`` (the voxel field)
+    the tile path probes level 1 on every active ray and compacts again
+    before the level-2 probe and the march.  ``defer=True`` returns
     ``(rgba, finish)`` with a ``finish()`` that returns None.
     """
     if aux is None and cfg.render_coarse > 0:
         aux = build_render_aux(params, cfg)
-    if aux is not None:
-        raise NotImplementedError("aux-probed renders need the voxel field")
+    if cfg.render_coarse <= 0:
+        aux = None  # render_rays reads the aux only when it probes
+    if aux is not None and cfg.render_span_bucket:
+        raise NotImplementedError("render_span_bucket=True is not ported yet")
     device = next(iter(params.values())).device
     chunk = chunk or _default_chunk(cfg)
     origins = torch.as_tensor(origins, dtype=torch.float32, device=device)
@@ -197,11 +372,14 @@ def render_views(
         od_t, order_t, n_act = _assemble_tiles(origins, rotations, d_cam, t, npad)
         n_act = int(n_act)
         ct = max(chunk // t, 1)
-        outs = [
-            _render_tiles(params, od_t, order_t[i : min(i + ct, n_act)], cfg)
-            for i in range(0, n_act, ct)
-        ]
-        rgba_t = torch.cat(outs) if outs else torch.zeros((0, 4 * t), device=device)
+        if aux is not None:
+            rgba_t = _render_tiles_two_phase(params, od_t, order_t[:n_act], cfg, aux, chunk)
+        else:
+            outs = [
+                _render_tiles(params, od_t, order_t[i : min(i + ct, n_act)], cfg)
+                for i in range(0, n_act, ct)
+            ]
+            rgba_t = torch.cat(outs) if outs else torch.zeros((0, 4 * t), device=device)
         out = _scatter_tiles(rgba_t, order_t[:n_act], n_tiles)
         rgba = out.reshape(n_p, 4)[:n]
         rgb, a = rgba[:, :3], rgba[:, 3]
@@ -213,7 +391,7 @@ def render_views(
         outs = []
         for i in range(0, n_hit, chunk):
             od = od_sorted[i : min(i + chunk, n_hit)]
-            rgb, a = render_rays(params, od[:, :3], od[:, 3:], cfg)
+            rgb, a = render_rays(params, od[:, :3], od[:, 3:], cfg, aux=aux)
             outs.append(torch.cat([rgb, a[:, None]], dim=-1))
         rgba_hit = torch.cat(outs) if outs else torch.zeros((0, 4), device=device)
         rgb, a = _gather_back(rgba_hit, pos)
@@ -221,7 +399,7 @@ def render_views(
         o_all, d_all = _assemble_rays(origins, rotations, d_cam)
         outs_rgb, outs_a = [], []
         for i in range(0, n, chunk):
-            rgb, a = render_rays(params, o_all[i : i + chunk], d_all[i : i + chunk], cfg)
+            rgb, a = render_rays(params, o_all[i : i + chunk], d_all[i : i + chunk], cfg, aux=aux)
             outs_rgb.append(rgb)
             outs_a.append(a)
         rgb = torch.cat(outs_rgb)
@@ -307,11 +485,16 @@ def _compact_rays(origins, dirs):
     return od[order], pos, n_hit
 
 
+def _unpermute_rays(rgba, pos):
+    """Un-permute marched rays (M, 4) to the order ``pos`` was made for;
+    rays whose slot lies beyond the marched prefix read zeros."""
+    m = rgba.shape[0]
+    padded = torch.cat([rgba, rgba.new_zeros((1, 4))])
+    return padded[torch.clamp_max(pos, m)]
+
+
 def _gather_back(rgba_hit, pos):
-    """Un-permute marched hits; rays beyond the marched prefix read zeros."""
-    m = rgba_hit.shape[0]
-    padded = torch.cat([rgba_hit, rgba_hit.new_zeros((1, 4))])
-    out = padded[torch.clamp_max(pos, m)]
+    out = _unpermute_rays(rgba_hit, pos)
     return out[:, :3], out[:, 3]
 
 
@@ -322,3 +505,54 @@ def _render_tiles(params, od_t, tidx, cfg):
     rays = od_t[tidx].reshape(ct * t, 6)
     rgb, a = render_rays(params, rays[:, :3], rays[:, 3:], cfg)
     return torch.cat([rgb, a[:, None]], dim=-1).reshape(ct, 4 * t)
+
+
+def _render_tiles_two_phase(params, od_t, tidx, cfg, aux, chunk):
+    """Probe-then-march render of the active tiles ``tidx`` -> (n_act, 4t).
+
+    Level 1 probes every active-tile ray against the pooled volume; the
+    occupied rays are compacted to the front; level 2 and the fine march
+    run only on them, in chunks.  Per ray the result equals
+    ``render_rays(aux=aux)``: a ray dropped at level 1 composites to exact
+    zeros either way.  (The reference's version of this function also
+    speculates its chunk counts to hide a remote device's readback; here
+    the count is read directly.)
+    """
+    n_act = tidx.shape[0]
+    t = od_t.shape[1] // 6
+    ct = max(chunk // t, 1)
+    if n_act == 0:
+        return od_t.new_zeros((0, 4 * t))
+    packed = torch.cat(
+        [_probe_tiles_l1(od_t, tidx[i : i + ct], cfg, aux) for i in range(0, n_act, ct)]
+    )
+    order, pos, n1 = _partition(packed[:, 8] > 0.5)
+    n1 = int(n1)
+    pack1 = packed[order[:n1]]
+    outs = [_probe_march(params, pack1[i : i + chunk], cfg, aux) for i in range(0, n1, chunk)]
+    rgba_l1 = torch.cat(outs) if outs else packed.new_zeros((0, 4))
+    return _unpermute_rays(rgba_l1, pos).reshape(n_act, 4 * t)
+
+
+def _probe_tiles_l1(od_t, tidx, cfg, aux):
+    """Level-1 probe of the tiles ``tidx``; emits packed rows
+    ``[o(3) | d(3) | t_lo | t_hi | occ]`` (N, 9)."""
+    ct = tidx.shape[0]
+    t = od_t.shape[1] // 6
+    rays = od_t[tidx].reshape(ct * t, 6)
+    o, d = rays[:, :3], rays[:, 3:]
+    tmin, tmax, valid = ray_sphere(o, d)
+    t1lo, t1hi, any1 = _probe_level1(aux, o, d, tmin, tmax, valid, cfg)
+    occ = (any1 & valid).to(rays.dtype)
+    return torch.cat([rays, t1lo[:, None], t1hi[:, None], occ[:, None]], dim=-1)
+
+
+def _probe_march(params, packed, cfg, aux):
+    """Level-2 probe, interval tightening and the fine march on packed
+    level-1 survivors -> (N, 4) rgba."""
+    o, d = packed[:, :3], packed[:, 3:6]
+    tlo, thi, any2 = _probe_level2(aux, o, d, packed[:, 6], packed[:, 7], cfg)
+    occ = any2 & (packed[:, 8] > 0.5)
+    ns = cfg.render_n_samples or cfg.n_samples
+    rgb, a = _march_body(params, o, d, tlo, thi, occ, cfg, ns)
+    return torch.cat([rgb, a[:, None]], dim=-1)

@@ -44,7 +44,8 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:
-    """Compile every named source not built yet.
+    """Compile every named source not built yet, all at once (one nvcc
+    process per source, started together).
 
     Returns each name's compiler output (ptxas register and spill counts);
     an empty string for a library that was already built.  Raises when a
@@ -52,6 +53,7 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     logs = {}
+    running = []
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -59,12 +61,18 @@ def build(names: Sequence[str]) -> Dict[str, str]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        logs[name] = proc.stdout + proc.stderr
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in running:
+        logs[name], _ = proc.communicate()
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"kernel build failed: {name}: nvcc exit {proc.returncode}\n{logs[name]}")
-        os.replace(tmp, out)
+            failed.append(f"kernel build failed: {name}: nvcc exit {proc.returncode}\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return logs
 
 

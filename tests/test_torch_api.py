@@ -1,6 +1,7 @@
 """The port's serving slice as a whole against the JAX package: snapshots,
 eval metrics, screenshots and ``run``; plus the port's import hygiene."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -111,9 +112,99 @@ def test_screenshots_and_run_match(served, tmp_path):
 
 
 def test_run_without_snapshot_raises(served):
+    """Without a snapshot ``run`` trains; what it cannot train yet (the
+    hash field, whose encode has no backward) raises."""
     train_json, test_json, _, _ = served
-    with pytest.raises(NotImplementedError, match="training"):
-        tapi.run(train_json, test_transforms=test_json, device="cpu")
+    _, tcfg = _cfgs("f32")
+    with pytest.raises(NotImplementedError, match="hash"):
+        tapi.run(train_json, test_transforms=test_json, cfg=tcfg, device="cpu")
+
+
+# --- the voxel field: train, snapshot, score, both ways ----------------------
+
+VOXEL = dict(voxel_grid_size=12, n_steps=80, train_rays=256, train_warmup_steps=25, train_warmup_samples=24)
+CAM = dict(width=64, height=36, fx=70.0, fy=70.0, ppx=32.0, ppy=18.0, model=0)
+# the two packages score one snapshot through bf16 MLPs that may round an
+# activation an ulp apart and through probes whose thresholds may then
+# flip a ray: measured within 0.02 dB; the bound leaves several times that
+XSCORE_DB = 0.15
+
+
+def _black_psnr(test_json):
+    ds = tapi.load_dataset(test_json)
+    gt = ds.pixels[..., :3] * ds.pixels[..., 3:4]
+    return float(np.mean([-10.0 * np.log10(np.mean(f ** 2)) for f in gt]))
+
+
+@pytest.fixture(scope="module")
+def voxel_scene(tmp_path_factory):
+    from nerf_prv_tpu.core.config import CameraConfig as JCam
+
+    root = tmp_path_factory.mktemp("voxel")
+    train_json, test_json, _, _ = write_scene(
+        str(root), n_train=6, n_test=2, camera=JCam(**CAM), n_points=4000
+    )
+    return root, train_json, test_json
+
+
+def test_run_trains_the_default_field_end_to_end(voxel_scene):
+    """``run`` without a snapshot at a tiny voxel config on the CPU: trains,
+    saves, scores above a black frame, and writes screenshots."""
+    root, train_json, test_json = voxel_scene
+    snap = str(root / "port.ingp")
+    metrics = tapi.run(
+        train_json, n_steps=VOXEL["n_steps"], test_transforms=test_json,
+        save_metrics_path=str(root / "m.txt"), screenshot_transforms=test_json,
+        screenshot_dir=str(root / "shots"), cfg=tm.NerfConfig(**{**VOXEL, "n_steps": 5}),
+        seed=0, save_snapshot_path=snap, device="cpu",
+    )
+    assert metrics["PSNR"] >= _black_psnr(test_json) + 6.0, metrics
+    assert 0 < metrics["SSIM"] <= 1 and len(os.listdir(root / "shots")) == 2
+    params = tapi.load_snapshot(snap, tm.NerfConfig(**VOXEL), device="cpu")
+    assert params["grid"].shape == (12 ** 3, 64) and not params["grid"].requires_grad
+    again = tapi.eval_nerf(params, test_json, tm.NerfConfig(**VOXEL))
+    assert again == pytest.approx(metrics)
+
+
+def test_port_trained_snapshot_scores_the_same_in_jax(voxel_scene):
+    root, train_json, test_json = voxel_scene
+    tcfg, jcfg = tm.NerfConfig(**VOXEL), jm.NerfConfig(**VOXEL)
+    params, ds = tapi.train_nerf(train_json, tcfg, seed=1, device="cpu")
+    assert ds.n_frames == 6
+    snap = str(root / "port2.ingp")
+    tapi.save_snapshot(snap, params)
+    ours = tapi.eval_nerf(params, test_json, tcfg)
+    theirs = japi.eval_nerf(japi.load_snapshot(snap, jcfg), test_json, jcfg)
+    assert ours["PSNR"] >= _black_psnr(test_json) + 6.0
+    assert abs(ours["PSNR"] - theirs["PSNR"]) <= XSCORE_DB, (ours, theirs)
+    assert abs(ours["SSIM"] - theirs["SSIM"]) <= 5e-3
+
+
+def test_jax_trained_snapshot_scores_the_same_in_the_port(voxel_scene):
+    root, train_json, test_json = voxel_scene
+    tcfg, jcfg = tm.NerfConfig(**VOXEL), jm.NerfConfig(**VOXEL)
+    jparams, _ = japi.train_nerf(train_json, jcfg, seed=0)
+    snap = str(root / "jax.ingp")
+    japi.save_snapshot(snap, jparams)
+    theirs = japi.eval_nerf(jparams, test_json, jcfg)
+    params = tapi.load_snapshot(snap, tcfg, device="cpu")
+    np.testing.assert_array_equal(params["grid"].numpy(), np.asarray(jparams["grid"]))
+    ours = tapi.eval_nerf(params, test_json, tcfg)
+    assert theirs["PSNR"] >= _black_psnr(test_json) + 6.0
+    assert abs(ours["PSNR"] - theirs["PSNR"]) <= XSCORE_DB, (ours, theirs)
+    assert abs(ours["SSIM"] - theirs["SSIM"]) <= 5e-3
+    # and the port trains on from it: a warm start skips the warmup phase
+    more, _ = tapi.train_nerf(train_json, dataclasses.replace(tcfg, n_steps=10), seed=2, init_from=params, device="cpu")
+    assert tapi.eval_nerf(more, test_json, tcfg)["PSNR"] >= ours["PSNR"] - 1.0
+
+
+def test_validate_snapshot_checks_the_grid_shape(voxel_scene):
+    params = tm.init_params(torch.Generator().manual_seed(0), tm.NerfConfig(**VOXEL), device="cpu")
+    tapi.validate_snapshot(params, tm.NerfConfig(**VOXEL))
+    with pytest.raises(ValueError, match="grid shape"):
+        tapi.validate_snapshot(params, tm.NerfConfig())
+    with pytest.raises(ValueError, match="table"):
+        tapi.validate_snapshot(params, tm.NerfConfig(field_impl="hash"))
 
 
 def test_port_imports_no_jax():
@@ -126,7 +217,8 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nerf_prv_tpu.'))"
         " or m == 'nerf_prv_tpu')\n"
-        "assert len(names) >= 10, names\n"
+        "assert len(names) >= 16, names\n"
+        "assert {p.__name__ + s for s in ('.nerf.voxelfield', '.nerf.train', '.ops.row_gather', '.ops.row_scatter_add')} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )

@@ -174,3 +174,136 @@ def test_metrics_match():
         )
     for jf, tf in ((jmet.linear_to_srgb, tmet.linear_to_srgb), (jmet.srgb_to_linear, tmet.srgb_to_linear)):
         np.testing.assert_allclose(tf(ta).numpy(), np.asarray(jf(jnp.asarray(a))), rtol=0, atol=1e-6)
+
+
+# --- the voxel field's occupancy probe and its aux-probed renders -----------
+
+from nerf_prv_tpu_torch.nerf.rays import ray_sphere as t_ray_sphere  # noqa: E402
+from voxel_common import G, both, cfgs as vcfgs, np_params, rays as vrays  # noqa: E402
+
+
+def _voxel(seed=0, **kw):
+    jcfg, tcfg = vcfgs(**kw)
+    jp, tp = both(np_params(jcfg, seed=seed))
+    return jcfg, tcfg, jp, tp
+
+
+def test_build_render_aux_matches():
+    jcfg, tcfg, jp, tp = _voxel()
+    want = jrd.build_render_aux(jp, jcfg)
+    got = trd.build_render_aux(tp, tcfg)
+    assert got.cell_raw.dtype == torch.bfloat16 and got.cell_raw.shape == (G ** 3, 8)
+    assert got.pooled.shape == (G // 2, G // 2, G // 2)
+    # the corner densities agree to ~1e-6 in f32 (test_torch_voxelfield), so
+    # as bf16 they are bit-equal except where a value sits on a rounding
+    # boundary: allow one bf16 ulp on at most 0.1% of them
+    a = got.cell_raw.view(torch.int16).numpy().astype(np.int32)
+    b = np.asarray(want.cell_raw).view(np.int16).astype(np.int32)
+    assert np.abs(a - b).max() <= 1 and (a != b).mean() <= 1e-3
+    np.testing.assert_allclose(got.pooled.numpy(), np.asarray(want.pooled), rtol=1e-5, atol=1e-6)
+    assert float(got.pooled.max()) > 1.0  # the field is occupied
+    # no aux where the reference has none
+    assert trd.build_render_aux(tp, dataclasses.replace(tcfg, bound="cube")) is None
+
+
+def test_pooled_lookup_keeps_the_bf16_rounding():
+    jcfg, tcfg, jp, tp = _voxel()
+    pooled = np.array(jrd.build_render_aux(jp, jcfg).pooled)
+    pos = np.random.default_rng(3).uniform(0, 1, size=(50, 8, 3)).astype(np.float32)
+    pos[0, 0] = [1 - 1e-6] * 3
+    want = np.asarray(jrd._pooled_lookup(jnp.asarray(pooled), jnp.asarray(pos), G))
+    got = trd._pooled_lookup(torch.from_numpy(pooled), torch.from_numpy(pos), G).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got != pooled.reshape(-1)[0]).any() and np.abs(got).max() > 0
+
+
+def test_probe_levels_match():
+    jcfg, tcfg, jp, tp = _voxel()
+    jaux = jrd.build_render_aux(jp, jcfg)
+    # both sides probe the same tables, so thresholds cannot flip on them
+    taux = trd.RenderAux(
+        torch.from_numpy(np.array(jaux.cell_raw.astype(jnp.float32))).to(torch.bfloat16),
+        torch.from_numpy(np.array(jaux.pooled)),
+    )
+    o, d = vrays(512, seed=5)
+    jo, jd, to, td = jnp.asarray(o), jnp.asarray(d), torch.from_numpy(o), torch.from_numpy(d)
+    jb = jr.ray_sphere(jo, jd)
+    tb = t_ray_sphere(to, td)
+    l1_j = jrd._probe_level1(jaux, jo, jd, *jb, jcfg)
+    l1_t = trd._probe_level1(taux, to, td, *tb, tcfg)
+    assert 0 < int(l1_t[2].sum()) < 512
+    np.testing.assert_array_equal(l1_t[2].numpy(), np.asarray(l1_j[2]))
+    for a, b in zip(l1_j[:2], l1_t[:2]):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-6)
+    l2_j = jrd._probe_level2(jaux, jo, jd, l1_j[0], l1_j[1], jcfg)
+    l2_t = trd._probe_level2(taux, to, td, torch.from_numpy(np.asarray(l1_j[0])), torch.from_numpy(np.asarray(l1_j[1])), tcfg)
+    np.testing.assert_array_equal(l2_t[2].numpy(), np.asarray(l2_j[2]))
+    for a, b in zip(l2_j[:2], l2_t[:2]):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-6)
+    sig_j = jrd._cell_sigma_at(jaux.cell_raw, jnp.asarray(o[:, None, :] * 0 + 0.4), G)
+    sig_t = trd._cell_sigma_at(taux.cell_raw, torch.from_numpy(o[:, None, :] * 0 + 0.4), G)
+    np.testing.assert_allclose(sig_t.numpy(), np.asarray(sig_j), rtol=1e-5)
+
+
+def test_render_rays_with_aux_matches():
+    jcfg, tcfg, jp, tp = _voxel()
+    o, d = vrays(512, seed=6)
+    rgb_j, a_j = jrd.render_rays(jp, jnp.asarray(o), jnp.asarray(d), jcfg, aux=jrd.build_render_aux(jp, jcfg))
+    rgb_t, a_t = trd.render_rays(tp, torch.from_numpy(o), torch.from_numpy(d), tcfg, aux=trd.build_render_aux(tp, tcfg))
+    assert float(a_t.max()) > 0.5 and float(a_t[:16].max()) == 0.0
+    np.testing.assert_allclose(rgb_t.numpy(), np.asarray(rgb_j), rtol=0, atol=RENDER_TOL)
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), rtol=0, atol=RENDER_TOL)
+
+
+@pytest.mark.parametrize(
+    "w,h,chunk",
+    [(48, 40, 512), (640, 12, 1024), (640, 12, 1 << 17)],
+    ids=["per_ray", "tile_path_wide_frame", "tile_path_one_chunk"],
+)
+def test_render_views_with_aux_matches(w, h, chunk):
+    jcfg, tcfg, jp, tp = _voxel()
+    kw = dict(width=w, height=h, fx=w / 6.4, fy=w / 6.4, ppx=w / 2, ppy=h / 2, model=0)
+    org, rot = _views(2, seed=2)
+    want = np.asarray(jrd.render_views(jp, jnp.asarray(org), jnp.asarray(rot), JCam(**kw), jcfg, chunk=chunk))
+    got, finish = trd.render_views(tp, org, rot, TCam(**kw), tcfg, chunk=chunk, defer=True)
+    assert finish() is None and got.shape == (2, h, w, 4)
+    assert float(got[..., 3].max()) > 0.5 and float(got[..., 3].min()) == 0.0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=RENDER_TOL)
+    # an aux the caller built serves every group, as eval_nerf passes it
+    again = trd.render_views(tp, org, rot, TCam(**kw), tcfg, chunk=chunk, aux=trd.build_render_aux(tp, tcfg))
+    assert torch.equal(again, got)
+
+
+def test_tile_path_equals_render_rays_per_ray():
+    """The two-phase tile render gives each ray what ``render_rays(aux)``
+    gives it, bit for bit."""
+    _, tcfg, _, tp = _voxel()
+    w, h = 640, 6
+    cam = TCam(width=w, height=h, fx=100.0, fy=100.0, ppx=w / 2, ppy=h / 2, model=0)
+    org, rot = _views(1, seed=4)
+    aux = trd.build_render_aux(tp, tcfg)
+    frame = trd.render_views(tp, org, rot, cam, tcfg, chunk=512, aux=aux)[0].reshape(-1, 4)
+    o_all, d_all = trd._assemble_rays(torch.from_numpy(org), torch.from_numpy(rot), trd._pixel_dirs(cam, "cpu"))
+    rgb, a = trd.render_rays(tp, o_all, d_all, tcfg, aux=aux)
+    assert torch.equal(frame[:, :3], rgb) and torch.equal(frame[:, 3], a)
+
+
+@pytest.mark.parametrize(
+    "kw,call",
+    [
+        (dict(render_span_bucket=True), "views"),
+        (dict(n_importance=4), "rays"),
+        (dict(train_probe_refresh=5), "rays"),
+    ],
+    ids=["span_bucket", "importance", "baked_probe"],
+)
+def test_unported_render_options_raise(kw, call):
+    _, tcfg, _, tp = _voxel(**kw)
+    o, d = vrays(32)
+    with pytest.raises(NotImplementedError, match=next(iter(kw))):
+        if call == "views":
+            org, rot = _views(1, seed=1)
+            cam = TCam(width=640, height=4, fx=100.0, fy=100.0, ppx=320.0, ppy=2.0, model=0)
+            trd.render_views(tp, org, rot, cam, tcfg)
+        else:
+            trd.render_rays(tp, torch.from_numpy(o), torch.from_numpy(d), tcfg, jitter=torch.rand(32, 16))
