@@ -10,9 +10,14 @@ Phases:
     process each, started together;
 (2) each kernel against its plain version at the paths' full shapes, timed
     beside its bound and the library call for the same work:
-    ``hash_encode`` against ``hashgrid.encode``; ``row_gather`` (exact) and
-    ``row_scatter_add`` (against ``index_add_`` and a float64 sum, on
-    uniform and on ray-ordered indices) against theirs;
+    ``hash_encode`` against ``hashgrid.encode`` per level, on uniform points
+    and on the probe and march points of one served chunk, at three
+    configs; ``row_gather`` (exact) and ``row_scatter_add`` (against
+    ``index_add_`` and a float64 sum, on uniform and on ray-ordered
+    indices) against theirs.  Every kernel time is a device time
+    (``device_ms``: a replayed CUDA graph of the wrapper's calls), printed
+    beside the time of a call through the wrapper (``time_ms``), and the
+    two are cross-checked where the kernel outlasts the host;
 (3) serve a random full-width hash-field snapshot at 1280x720 through
     ``run(load_snapshot_path=...)`` on 4 frames, count its launches, time
     one ``eval_nerf`` and profile another;
@@ -29,11 +34,22 @@ Phases:
 Any failure exits non-zero.  The line before the last is the kernel table
 as JSON, the last line the device.  It imports nothing of JAX or of
 ``nerf_prv_tpu``.
+
+To compare other builds of the hash-encode kernel (a parent commit's
+source, an ablated copy) with this tree's on one card in one call:
+
+    python3 chip_smoke.py --k1 old=build/parent/hash_encode.cu --k1 ...
+
+builds each source (same C interface), prints its distance from
+``hashgrid.encode`` and times all of them in turns, first to last and back,
+at the probe and march shapes on uniform and on served points.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -71,6 +87,10 @@ from nerf_prv_tpu_torch.ops import _build  # noqa: E402
 from nerf_prv_tpu_torch.ops.hash_encode import hash_encode  # noqa: E402
 from nerf_prv_tpu_torch.ops.row_gather import row_gather, row_gather_plain  # noqa: E402
 from nerf_prv_tpu_torch.ops.row_scatter_add import row_scatter_add, row_scatter_add_plain  # noqa: E402
+
+# the hash-encode wrapper's module (the package exports the function under
+# the module's name, so ``import`` yields the function)
+hash_encode_mod = sys.modules[hash_encode.__module__]
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and f32 rate
 # outside the tensor cores, at the full 700 W power limit
@@ -134,7 +154,10 @@ def sync():
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    """Mean time of one call of ``fn`` as its caller sees it: two CUDA
+    events around ``iters`` Python calls.  Where the host needs longer for a
+    call (checks, ``torch.empty``, the ctypes call: 25-45 us measured) than the
+    device for the kernel, this is the host's time, not the kernel's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -146,6 +169,82 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 50, replays: int = 3) -> float:
+    """Mean device time of one ``fn()``, the host's share left out.
+
+    ``iters`` calls are captured into one CUDA graph (the wrappers launch on
+    the current stream, ``cudaMemsetAsync`` is capturable and ``torch.empty``
+    draws from the graph's pool); the graph is replayed once to warm up and
+    then ``replays`` times between two CUDA events.  A replay launches the
+    captured kernels back to back from the device's own queue: no Python,
+    no ctypes call and no allocator runs inside the timed span.
+    """
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def enqueue_ms(fn, iters: int = 50) -> float:
+    """Host time of one ``fn()`` that only enqueues work (host clock, no
+    wait for the device inside the span)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
+
+
+# device_ms against time_ms: where a call's host work takes at most this
+# share of the kernel's device time, the device is never idle between two
+# calls and the two figures must agree within CALL_AGREES.  The host's time
+# per call wanders (0.02-0.08 ms for the same call on H100 hosts) and the
+# scatter-add's two launches leave a gap the graph does not have (5-6% at a
+# share of 0.4), so the share leaves room and the call time is the best of
+# three rounds
+HOST_SHARE_MAX = 0.4
+CALL_AGREES = 0.10
+
+
+def kernel_times(fn, label: str) -> dict:
+    """``ms`` (device), ``call_ms`` (through the wrapper) and ``host_ms``
+    (enqueue only) of one kernel call, cross-checked: where the kernel
+    outlasts the host the first two agree within CALL_AGREES, or the run
+    fails.  ``call_checked`` says whether the comparison could be made."""
+    t = dict(ms=device_ms(fn), call_ms=min(time_ms(fn, iters=50) for _ in range(3)),
+             host_ms=enqueue_ms(fn))
+    if t["host_ms"] <= HOST_SHARE_MAX * t["ms"]:
+        if abs(t["call_ms"] - t["ms"]) > CALL_AGREES * t["ms"]:
+            raise SystemExit(
+                f"{label}: device {t['ms']:.4f} ms and call {t['call_ms']:.4f} ms differ by more than "
+                f"{CALL_AGREES:.0%} though the host needs only {t['host_ms']:.4f} ms per call")
+        t["call_checked"] = True
+    else:
+        t["call_checked"] = False  # call_ms is the host's time here
+    return t
+
+
+def times_text(t: dict) -> str:
+    note = f"agree within {CALL_AGREES:.0%}" if t["call_checked"] else "host too slow to compare"
+    return f"device {t['ms']:.4f} ms, call {t['call_ms']:.4f} ms, host {t['host_ms']:.4f} ms ({note})"
 
 
 def card_line() -> str:
@@ -199,44 +298,198 @@ def encode_bound_ms(x: torch.Tensor, cfg: HashGridConfig) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernel_check(dev) -> dict:
-    log("== phase 2a: hash_encode kernel against hashgrid.encode")
-    cfg = HashGridConfig()
-    g = torch.Generator(device=dev).manual_seed(0)
-    table = init_table(g, cfg, scale=1.0, device=dev)
-    n = MARCH_N + 37  # not a multiple of any block
-    x = torch.rand((n, 3), generator=g, device=dev)
-    x[:5] = torch.tensor(
-        [[0.0, 0.0, 0.0], [1 - 1e-6] * 3, [1.0, 1.0, 1.0], [0.0, 1.0, 1 - 1e-6], [1.0, 0.5, 0.0]],
-        device=dev,
-    )
+def make_hash_field(dev) -> tuple:
+    """The served hash field: the full-width config and random weights."""
+    cfg = NerfConfig(field_impl="hash", encode_impl="fused")
+    params = init_params(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+    # init_params' table is +-1e-4, which leaves the MLPs blind to the
+    # encode; at +-1 the renders depend on every level of the output
+    params["table"] *= 1e4
+    return cfg, params
+
+
+def served_chunk_points(params, ds, cfg: NerfConfig) -> tuple:
+    """(probe (PROBE_N, 3), march (MARCH_N, 3)) positions of the first chunk
+    the tile path serves of frame 0, ray by ray: the 24 midpoint probes on
+    each ray's chord as ``_tighten_interval`` places them, and the 32 march
+    samples inside the interval that probe (through the field) tightens it
+    to, as ``_march_body`` places them."""
+    dev = params["table"].device
+    t = render_mod._RENDER_TILE
+    origins = torch.as_tensor(ds.origins[:1], dtype=torch.float32, device=dev)
+    rotations = torch.as_tensor(ds.rotations[:1], dtype=torch.float32, device=dev)
+    npad = (-ds.camera.height * ds.camera.width) % t
+    od_t, order_t, _ = render_mod._assemble_tiles(
+        origins, rotations, render_mod._pixel_dirs(ds.camera, dev), t, npad)
+    rays = od_t[order_t[: CHUNK_RAYS // t]].reshape(-1, 6)
+    if rays.shape[0] != CHUNK_RAYS:
+        raise SystemExit("frame 0 has less than one chunk of active tiles")
+    o, d = rays[:, :3], rays[:, 3:]
+    tmin, tmax, valid = ray_sphere(o, d)
+
+    def midpoints(lo, hi, k):
+        base = torch.arange(k, dtype=torch.float32, device=dev)[None, :] + 0.5
+        ts = lo[:, None] + base * ((hi - lo) / k)[:, None]
+        pos = torch.clamp(o[:, None, :] + d[:, None, :] * ts[..., None], 0.0, 1.0 - 1e-6)
+        return pos.reshape(-1, 3).contiguous()
+
+    with torch.no_grad():
+        tlo, thi, _ = render_mod._tighten_interval(
+            params, o, d, tmin, tmax, valid, cfg.render_coarse, cfg)
+    return midpoints(tmin, tmax, cfg.render_coarse), midpoints(tlo, thi, MARCH_N // CHUNK_RAYS)
+
+
+def same_cell_share(x: torch.Tensor, res: int) -> float:
+    """Share of points that lie in the cell of the point before them."""
+    cell = torch.clamp(torch.floor(x * float(res)), 0, res - 1)
+    return float((cell[1:] == cell[:-1]).all(dim=-1).float().mean())
+
+
+def check_encode(table, x, cfg: HashGridConfig, label: str) -> float:
+    """The kernel against ``hashgrid.encode`` on ``x``, level by level."""
+    n = x.shape[0]
     got = hash_encode(table, x, cfg)
     want = encode(table, x, cfg)
     sync()
     err = (got - want).abs().reshape(n, cfg.levels, cfg.features).amax(dim=(0, 2)).cpu()
-    log("max |kernel - plain| per level: " + " ".join(f"{e:.2e}" for e in err.tolist()))
+    log(f"max |kernel - plain| per level, {label}: " + " ".join(f"{e:.1e}" for e in err.tolist()))
     if not (torch.isfinite(got).all() and bool((err <= ENCODE_TOL).all())):
-        raise SystemExit(f"hash_encode disagrees with hashgrid.encode beyond {ENCODE_TOL}")
-    max_err = float(err.max())
+        raise SystemExit(f"hash_encode disagrees with hashgrid.encode beyond {ENCODE_TOL} ({label})")
+    return float(err.max())
 
-    xm, xp = x[:MARCH_N].contiguous(), x[:PROBE_N].contiguous()
-    ms = time_ms(lambda: hash_encode(table, xm, cfg), iters=50)
-    ms_probe = time_ms(lambda: hash_encode(table, xp, cfg), iters=50)
-    plain_ms = time_ms(lambda: encode(table, xm, cfg), iters=5, warmup=1)
-    bound_ms, bound_by = encode_bound_ms(xm, cfg)
-    bound_probe, _ = encode_bound_ms(xp, cfg)
-    log(
-        f"hash_encode march N={MARCH_N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}); probe N={PROBE_N}: kernel {ms_probe:.4f} ms, "
-        f"bound {bound_probe:.4f} ms"
+
+def encode_point_sets(dev, params, ds, cfg: NerfConfig) -> dict:
+    """The points K1 is checked and timed on: uniform ones with the cube's
+    boundaries among them, and one served chunk's, at both path shapes."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((MARCH_N + 37, 3), generator=g, device=dev)  # not a multiple of any block
+    x[:5] = torch.tensor(
+        [[0.0, 0.0, 0.0], [1 - 1e-6] * 3, [1.0, 1.0, 1.0], [0.0, 1.0, 1 - 1e-6], [1.0, 0.5, 0.0]],
+        device=dev,
     )
+    probe, march = served_chunk_points(params, ds, cfg)
+    res = [int(r) for r in cfg.grid.resolutions()]
+    for name, pts in (("probe", probe), ("march", march)):
+        log(f"served {name} points {tuple(pts.shape)}: share in the cell of the point before, by level: "
+            + " ".join(f"{same_cell_share(pts, r):.2f}" for r in res))
+    return {
+        "uniform ragged": x,
+        f"march N={MARCH_N} uniform": x[:MARCH_N].contiguous(),
+        f"march N={MARCH_N} ray-ordered": march,
+        f"probe N={PROBE_N} uniform": x[:PROBE_N].contiguous(),
+        f"probe N={PROBE_N} ray-ordered": probe,
+    }
+
+
+def phase_kernel_check(dev, params, ds, nerf_cfg: NerfConfig) -> dict:
+    log("== phase 2a: hash_encode kernel against hashgrid.encode")
+    cfg = nerf_cfg.grid
+    table = params["table"]
+    sets = encode_point_sets(dev, params, ds, nerf_cfg)
+    ragged = sets.pop("uniform ragged")
+    ray_march = sets[f"march N={MARCH_N} ray-ordered"]
+    ray_probe = sets[f"probe N={PROBE_N} ray-ordered"]
+    max_err = max(
+        check_encode(table, ragged, cfg, f"default config, uniform N={ragged.shape[0]}"),
+        check_encode(table, ray_probe, cfg, "default config, served probe points"),
+        check_encode(table, ray_march, cfg, "default config, served march points"),
+    )
+    g = torch.Generator(device=dev).manual_seed(4)
+    for other in (HashGridConfig(log2_table=14), HashGridConfig(features=4)):
+        note = f"log2_table={other.log2_table} features={other.features}"
+        t2 = init_table(g, other, scale=1.0, device=dev)
+        check_encode(t2, ragged, other, f"{note}, uniform")
+        check_encode(t2, ray_march, other, f"{note}, served march points")
+        del t2
+
+    rows = []
+    for label, pts in sets.items():
+        row = dict(shape=label, max_abs_err=max_err, library_ms=None)
+        row.update(kernel_times(lambda: hash_encode(table, pts, cfg), f"hash_encode {label}"))
+        row["plain_ms"] = time_ms(lambda: encode(table, pts, cfg), iters=3, warmup=1)
+        row["bound_ms"], row["bound_by"] = encode_bound_ms(pts, cfg)
+        log(f"hash_encode {label}: {times_text(row)}, plain {row['plain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = {row['bound_ms'] / row['ms']:.3f} of the time")
+        rows.append(row)
+    head = rows[1]  # the march's own points
     return dict(
         name="hash_encode", route="cuda",
         source="nerf_prv_tpu_torch/ops/csrc/hash_encode.cu",
         replaces="nerf_prv_tpu/ops/hash_encode.py:31",
-        launches=0, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        launches=0, **{k: head[k] for k in
+                       ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=head["shape"], shapes=rows,
     )
+
+
+def build_k1_sources(specs: list) -> dict:
+    """nvcc every ``name=path`` source (all started together) into the build
+    directory; returns name -> bound library."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
+    for spec in specs:
+        name, _, path = spec.partition("=")
+        out = _build.BUILD_DIR / f"k1-{name}-{os.getpid()}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), path]
+        running.append((name, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for name, out, proc in running:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on {name}:\n{text}")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+        libs[name] = hash_encode_mod.bind(ctypes.CDLL(str(out)))
+    return libs
+
+
+@contextlib.contextmanager
+def k1_library(lib):
+    """Send the ``hash_encode`` wrapper's launches to another build."""
+    saved = hash_encode_mod._lib
+    hash_encode_mod._lib = lambda: lib
+    try:
+        yield
+    finally:
+        hash_encode_mod._lib = saved
+
+
+def compare_k1(dev, specs: list, card: str):
+    """Other builds of the hash-encode kernel against this tree's, in turns
+    on one card: first to last and back, two device times each per shape."""
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        ds = load_dataset(write_scene(root, dev, "test", 1, turn=0.5))
+    nerf_cfg, params = make_hash_field(dev)
+    cfg, table = nerf_cfg.grid, params["table"]
+    libs = {"tree": hash_encode_mod._lib()}
+    libs.update(build_k1_sources(specs))
+    sets = encode_point_sets(dev, params, ds, nerf_cfg)
+    ragged = sets.pop("uniform ragged")
+    # the four coarsest levels alone (the same resolutions: 16, 22, 30, 42)
+    coarse = HashGridConfig(levels=4, n_max=int(cfg.resolutions()[3]))
+    if [int(r) for r in coarse.resolutions()] != [int(r) for r in cfg.resolutions()[:4]]:
+        raise SystemExit("the coarse config does not reproduce the first four levels")
+    want = encode(table, ragged, cfg)
+    for name, lib in libs.items():
+        with k1_library(lib):
+            got = hash_encode(table, ragged, cfg)
+        sync()
+        log(f"{name}: max |kernel - plain| {float((got - want).abs().max()):.3e}")
+    order = list(libs) + list(reversed(libs))
+    cases = [(label, pts, cfg) for label, pts in sets.items()]
+    cases.append(("levels 0-3 only, march ray-ordered", sets[f"march N={MARCH_N} ray-ordered"], coarse))
+    cases.append(("levels 0-3 only, march uniform", sets[f"march N={MARCH_N} uniform"], coarse))
+    for label, pts, c in cases:
+        tab = table[: c.levels * c.table_size]
+        bound, by = encode_bound_ms(pts, c)
+        times = {name: [] for name in libs}
+        for name in order:
+            with k1_library(libs[name]):
+                times[name].append(device_ms(lambda: hash_encode(tab, pts, c)))
+        log(f"{label} (bound {bound:.5f} ms, {by}; {card}): " + "; ".join(
+            f"{name} {a:.4f} {b:.4f}" for name, (a, b) in times.items()))
 
 
 class BatchSource:
@@ -260,12 +513,16 @@ class BatchSource:
         return batch, jitter
 
 
-def ray_ordered_indices(source: BatchSource, cfg: NerfConfig, n_samples: int, seed: int = 3):
+def ray_ordered_indices(source: BatchSource, cfg: NerfConfig, n_samples: int, seed: int = 3,
+                        midpoints: bool = False):
     """Grid row indices of one real training batch, ray by ray: cfg.train_rays
     rays drawn from the scene's hit pool, ``n_samples`` stratified samples
-    along each ray's chord, through ``cell_and_frac``."""
+    along each ray's chord (or their midpoints, as the no-grad probe of a
+    tight step places them), through ``cell_and_frac``."""
     dev = source.pixels.device
     (o, d, _, _), jitter = source.draw(torch.Generator(device=dev).manual_seed(seed), cfg, n_samples)
+    if midpoints:
+        jitter = 0.5
     tmin, tmax, _ = ray_sphere(o, d)
     base = torch.arange(n_samples, dtype=torch.float32, device=dev)[None, :]
     ts = tmin[:, None] + (base + jitter) * ((tmax - tmin) / n_samples)[:, None]
@@ -306,16 +563,16 @@ def check_gather(table, idx, note) -> dict:
     if not torch.equal(got.view(as_bits), want.view(as_bits)):
         raise SystemExit(f"row_gather {label} is not bit-equal to table[idx]")
     err = float((got.float() - want.float()).abs().max()) if idx.numel() else 0.0
-    row = dict(shape=label, max_abs_err=err, bound_ms=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    row = dict(shape=label, max_abs_err=err, bound_ms=0.0, ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0)
     if idx.numel():
         row.update(
-            ms=time_ms(lambda: row_gather(table, idx), iters=50),
-            plain_ms=time_ms(lambda: row_gather_plain(table, idx), iters=20),
-            library_ms=time_ms(lambda: torch.index_select(table, 0, idx), iters=20),
+            kernel_times(lambda: row_gather(table, idx), f"row_gather {label}"),
+            plain_ms=device_ms(lambda: row_gather_plain(table, idx), iters=20),
+            library_ms=device_ms(lambda: torch.index_select(table, 0, idx), iters=20),
             bound_ms=gather_bound_ms(table, idx),
         )
-    log(f"row_gather {label}: equal; kernel {row['ms']:.4f} ms, table[idx] {row['plain_ms']:.4f} ms, "
-        f"index_select {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes)")
+        log(f"row_gather {label}: equal; {times_text(row)}, table[idx] {row['plain_ms']:.4f} ms, "
+            f"index_select {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes)")
     return row
 
 
@@ -345,18 +602,20 @@ def check_scatter(idx, upd, n_rows, label) -> dict:
     vs_plain = float((got - plain).abs().max())
     if not bool(((got - plain).abs().double() <= 2 * tol).all()):
         raise SystemExit(f"row_scatter_add {label} disagrees with index_add_ by {vs_plain:.3e}")
-    row = dict(shape=label, max_abs_err=vs_plain, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    row = dict(shape=label, max_abs_err=vs_plain, plain_ms=0.0, library_ms=0.0)
     row["bound_ms"], row["bound_by"] = scatter_bound_ms(idx, upd, n_rows)
+    # with no updates the call is its memset alone: timed too, so that the
+    # kernel's own share of a call can be told from the zeroing's
+    row.update(kernel_times(lambda: row_scatter_add(idx, upd, n_rows), f"row_scatter_add {label}"))
     if idx.numel():
         zero = torch.zeros((n_rows, upd.shape[1]), dtype=torch.float32, device=upd.device)
         row.update(
-            ms=time_ms(lambda: row_scatter_add(idx, upd, n_rows), iters=50),
-            plain_ms=time_ms(lambda: row_scatter_add_plain(idx, upd, n_rows), iters=20),
-            library_ms=time_ms(lambda: torch.index_add(zero, 0, idx, upd), iters=20),
+            plain_ms=device_ms(lambda: row_scatter_add_plain(idx, upd, n_rows), iters=20),
+            library_ms=device_ms(lambda: torch.index_add(zero, 0, idx, upd), iters=20),
         )
     log(f"row_scatter_add {label}: max rows' updates {int(count.max())}, |kernel - f64| max "
         f"{float(err.max()):.3e} (bound {float(tol.max()):.3e}), |kernel - index_add_| {vs_plain:.3e}; "
-        f"kernel {row['ms']:.4f} ms, zeros+index_add_ {row['plain_ms']:.4f} ms, "
+        f"{times_text(row)} (memset included), zeros+index_add_ {row['plain_ms']:.4f} ms, "
         f"index_add {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
@@ -377,9 +636,10 @@ def phase_row_kernels(dev, source: BatchSource) -> tuple:
     ray96 = ray_ordered_indices(source, cfg, 96)  # 4,096 rays x 96 samples
     ray_tight = ray_ordered_indices(source, cfg, cfg.n_samples)
     ray_warm = ray_ordered_indices(source, cfg, cfg.train_warmup_samples)
+    ray_probe = ray_ordered_indices(source, cfg, cfg.train_coarse, midpoints=True)
     # the wrappers do not clamp: the range is checked here, once, on the
     # indices cell_and_frac gives a real batch
-    for name, idx in (("96", ray96), ("tight", ray_tight), ("warmup", ray_warm)):
+    for name, idx in (("96", ray96), ("tight", ray_tight), ("warmup", ray_warm), ("probe", ray_probe)):
         lo, hi = int(idx.min()), int(idx.max())
         if lo < 0 or hi >= n_rows:
             raise SystemExit(f"cell_and_frac gave a row outside [0, {n_rows}): {lo}..{hi}")
@@ -389,6 +649,8 @@ def phase_row_kernels(dev, source: BatchSource) -> tuple:
 
     gathers = [
         check_gather(grid_bf, ray_tight, "tight-step march, ray-ordered"),
+        check_gather(grid_bf, ray_probe, "tight-step probe, ray-ordered"),
+        check_gather(grid_bf, ray_warm, "warmup-step march, ray-ordered"),
         check_gather(grid, uniform(E_N), "uniform"),
         check_gather(grid_bf, uniform(E_N), "uniform"),
         check_gather(grid_bf, ray96, "ray-ordered"),
@@ -412,14 +674,21 @@ def phase_row_kernels(dev, source: BatchSource) -> tuple:
         check_scatter(ray96[:E2_N].contiguous(), upd(min(E2_N, ray96.numel())), n_rows,
                       f"N={min(E2_N, ray96.numel())} ray-ordered"),
         check_scatter(uniform(E_N + 37).to(torch.int64), upd(E_N + 37), n_rows, f"N={E_N + 37} int64 ragged"),
-        check_scatter(uniform(0), upd(0), n_rows, "N=0"),
+        check_scatter(uniform(0), upd(0), n_rows, "N=0 (the memset alone)"),
     ]
+    # one tight step's three launches on the device, the scatter-add's memset
+    # left out as a profile files it among the copies: held against the
+    # profiled step in phase 5
+    tight_us = 1e3 * (gathers[0]["ms"] + gathers[1]["ms"] + scatters[0]["ms"] - scatters[-1]["ms"])
+    log(f"one tight step's row launches: probe gather {gathers[1]['ms'] * 1e3:.1f} us + march gather "
+        f"{gathers[0]['ms'] * 1e3:.1f} us + scatter-add {scatters[0]['ms'] * 1e3:.1f} us less its memset "
+        f"{scatters[-1]['ms'] * 1e3:.1f} us = {tight_us:.1f} us")
     gather = dict(
         name="row_gather", route="cuda",
         source="nerf_prv_tpu_torch/ops/csrc/row_gather.cu",
         replaces="experiments/exp_vmem_gather.py:72",
         launches=0, bound_by="bytes", **{k: gathers[0][k] for k in
-                                        ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
+                                        ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "library_ms")},
         shape=gathers[0]["shape"], shapes=gathers,
     )
     scatter = dict(
@@ -428,10 +697,10 @@ def phase_row_kernels(dev, source: BatchSource) -> tuple:
         replaces="experiments/exp_scatter_kernel.py:120",
         also_replaces=["experiments/exp_scatter_banks.py:60", "experiments/exp_vmem_gather.py:124"],
         launches=0, **{k: scatters[0][k] for k in
-                       ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                       ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         shape=scatters[0]["shape"], shapes=scatters,
     )
-    return gather, scatter
+    return gather, scatter, tight_us
 
 
 def spiral_views(n: int, turn: float) -> np.ndarray:
@@ -478,13 +747,8 @@ def write_scene(root: str, dev, name: str, n_frames: int, turn: float) -> str:
     return path
 
 
-def phase_serve(dev, root: str, test_json: str, kernel: dict, card: str):
+def phase_serve(dev, root: str, test_json: str, cfg: NerfConfig, params, kernel: dict, card: str):
     log(f"== phase 3: serve a full-width hash-field snapshot at {CAMERA.width}x{CAMERA.height}")
-    cfg = NerfConfig(field_impl="hash", encode_impl="fused")
-    params = init_params(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
-    # init_params' table is +-1e-4, which leaves the MLPs blind to the
-    # encode; at +-1 the renders below depend on every level of the output
-    params["table"] *= 1e4
     log("params: " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in params.items()))
     snap = os.path.join(root, "snap.ingp")
     save_snapshot(snap, params)
@@ -518,7 +782,7 @@ def phase_serve(dev, root: str, test_json: str, kernel: dict, card: str):
     dt = timed_eval(params, ds, cfg)
     log(f"eval_nerf: {rays_per_s_line(ds, dt)}, {hash_encode.launches} hash_encode launches ({card})")
     profile_device(lambda: eval_nerf(params, ds, cfg), "one hash eval_nerf", dt)
-    return params, ds, cfg
+    return params, ds
 
 
 def timed_eval(params, ds, cfg) -> float:
@@ -561,6 +825,7 @@ def profile_device(fn, label: str, wall_s: float, top: int = 20, tries: int = 3)
     third less device time), so the trace counts the port's own kernels
     and is taken again, up to ``tries`` times, until that count equals the
     launches the wrappers counted; the line printed says which it was.
+    Returns ({family: (us, kernels)}, whether the trace was complete).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -598,6 +863,7 @@ def profile_device(fn, label: str, wall_s: float, top: int = 20, tries: int = 3)
         f"{fam} {us:.0f} us in {count}" for fam, (us, count) in sorted(families.items(), key=lambda kv: -kv[1][0])))
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {us:12.0f} us  {count:6d}x  {name[:100]}")
+    return families, seen == launched
 
 
 def phase_serve_vs_plain(params, ds, cfg):
@@ -676,8 +942,14 @@ def black_psnr(ds) -> float:
     return float(np.mean([-10.0 * math.log10(float(np.mean(f ** 2))) for f in gt]))
 
 
+# one tight step's three row launches: the sum of their device times from
+# phase 2b (L2 warm, back to back) against the same launches inside a
+# profiled step (between other kernels), as a ratio either way
+STEP_ROWS_FACTOR = 2.0
+
+
 def phase_train(dev, root: str, train_json: str, test_json: str, source: BatchSource,
-                gather: dict, scatter: dict, card: str):
+                gather: dict, scatter: dict, tight_us: float, card: str):
     cfg = dataclasses.replace(VOXEL_CFG, n_steps=N_STEPS)
     log(f"== phase 5: train the default voxel field, {cfg.n_steps} steps x {cfg.train_rays} rays, "
         f"{N_TRAIN_FRAMES} frames {CAMERA.width}x{CAMERA.height}")
@@ -762,7 +1034,14 @@ def phase_train(dev, root: str, train_json: str, test_json: str, source: BatchSo
     finally:
         torch.cuda.set_sync_debug_mode("default")
     log("3 tight steps under torch.cuda.set_sync_debug_mode('error'): no host sync")
-    profile_device(step, "one tight training step", tight_ms * 1e-3)
+    families, complete = profile_device(step, "one tight training step", tight_ms * 1e-3)
+    in_step_us, in_step_n = families.get("own kernels", (0.0, 0))
+    log(f"row kernels in the profiled step: {in_step_us:.1f} us in {in_step_n} launches; their device "
+        f"times alone add up to {tight_us:.1f} us (need within {STEP_ROWS_FACTOR}x either way)")
+    if complete and not (tight_us / STEP_ROWS_FACTOR <= in_step_us <= tight_us * STEP_ROWS_FACTOR):
+        raise SystemExit("the row kernels' device times do not add up to the profiled step's")
+    if not complete:
+        log("  the trace lost events: not compared")
     t_cast = time_ms(lambda: params["grid"].to(torch.bfloat16), iters=50)
     log(f"grid f32 -> bf16 cast (twice per tight step, once per render chunk): {t_cast:.4f} ms")
     return params, cfg, test_ds
@@ -866,6 +1145,10 @@ def phase_step_vs_plain(dev, params, cfg, source: BatchSource, test_ds):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
+                        help="only compare these builds of the hash-encode kernel with the tree's")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
@@ -876,17 +1159,26 @@ def main() -> int:
     phase_build()
     card = card_line()
     log(card)
+    if args.k1:
+        compare_k1(dev, args.k1, card)
+        return 0
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
         train_json = write_scene(root, dev, "train", N_TRAIN_FRAMES, turn=0.0)
         test_json = write_scene(root, dev, "test", N_TEST_FRAMES, turn=0.5)
         source = BatchSource(load_dataset(train_json), dev)
-        k_hash = phase_kernel_check(dev)
-        k_gather, k_scatter = phase_row_kernels(dev, source)
-        params, ds, cfg = phase_serve(dev, root, test_json, k_hash, card)
+        cfg, params = make_hash_field(dev)
+        k_hash = phase_kernel_check(dev, params, load_dataset(test_json), cfg)
+        k_gather, k_scatter, tight_us = phase_row_kernels(dev, source)
+        rows = [r for k in (k_hash, k_gather, k_scatter) for r in k["shapes"]]
+        compared = sum(bool(r.get("call_checked")) for r in rows)
+        log(f"device time against call time: compared on {compared} of {len(rows)} shapes")
+        if compared == 0:
+            raise SystemExit("the host is too slow to hold any device time against its call time")
+        params, ds = phase_serve(dev, root, test_json, cfg, params, k_hash, card)
         phase_serve_vs_plain(params, ds, cfg)
         del params
         vparams, vcfg, test_ds = phase_train(
-            dev, root, train_json, test_json, source, k_gather, k_scatter, card)
+            dev, root, train_json, test_json, source, k_gather, k_scatter, tight_us, card)
         phase_step_vs_plain(dev, vparams, vcfg, source, test_ds)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)

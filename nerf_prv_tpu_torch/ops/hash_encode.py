@@ -13,6 +13,7 @@ For CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,8 +24,26 @@ _FEATURES = (1, 2, 4, 8)
 _MAX_LEVELS = 32
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("hash_encode")
+def level_plan(cfg: HashGridConfig) -> tuple:
+    """(resolutions, dense flags) per level as the kernel takes them.
+
+    The dense-or-hashed choice is made here, in Python integers: in 32 bits
+    (res + 1)^3 wraps from level 14 of the default config on.
+    """
+    res = [int(r) for r in cfg.resolutions()]
+    return res, [int(is_dense(r, cfg.table_size)) for r in res]
+
+
+@functools.lru_cache(maxsize=None)
+def _level_arrays(cfg: HashGridConfig) -> tuple:
+    """``level_plan`` as the C arrays a launch passes, made once per config
+    (a handful exist in a process; a launch only reads them)."""
+    res, dense = level_plan(cfg)
+    return (ctypes.c_int * cfg.levels)(*res), (ctypes.c_int * cfg.levels)(*dense)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``hash_encode`` library."""
     fn = lib.hash_encode_forward
     if fn.argtypes is None:
         fn.argtypes = [
@@ -37,6 +56,10 @@ def _lib() -> ctypes.CDLL:
         lib.hash_encode_error_string.argtypes = [ctypes.c_int]
         lib.hash_encode_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load("hash_encode"))
 
 
 def _check_args(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig) -> None:
@@ -71,13 +94,12 @@ def hash_encode(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig) -> to
     out = torch.empty((n, cfg.out_dim), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    # a row load is one F-float vector: the table must be aligned to it
-    if table.data_ptr() % (4 * min(cfg.features, 4)):
-        raise ValueError("table storage is not aligned to one feature row")
+    # rows are loaded as vectors of up to 16 bytes and the output is stored
+    # as 16-byte vectors
+    if table.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("table storage is not aligned to 16 bytes")
     lib = _lib()
-    res = [int(r) for r in cfg.resolutions()]
-    res_arr = (ctypes.c_int * cfg.levels)(*res)
-    dense_arr = (ctypes.c_int * cfg.levels)(*[is_dense(r, cfg.table_size) for r in res])
+    res_arr, dense_arr = _level_arrays(cfg)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hash_encode_forward(

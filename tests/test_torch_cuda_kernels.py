@@ -36,26 +36,74 @@ def _inputs(cfg, n, seed, dev):
     return as_t(table), as_t(x)
 
 
-@pytest.mark.parametrize(
-    "cfg,n",
-    [
-        (HashGridConfig(features=1), 4099),
-        (HashGridConfig(features=2), 4099),
-        (HashGridConfig(features=4), 4099),
-        (HashGridConfig(features=8), 4099),
-        (HashGridConfig(levels=4, log2_table=12, n_min=4, n_max=64), 33),
-    ],
-    ids=["f1", "f2", "f4", "f8", "small"],
-)
-def test_hash_encode_kernel_matches_plain(cuda_device, cfg, n):
-    table, x = _inputs(cfg, n, seed=cfg.features, dev=cuda_device)
+def _points(n, order, seed, dev):
+    """(n, 3) points in the unit cube: uniform, or ray by ray (32 samples
+    along a short chord each, as a march hands them over); the cube's
+    boundaries come first either way."""
+    rng = np.random.default_rng(seed)
+    if order == "uniform":
+        x = rng.uniform(0, 1, size=(n, 3))
+    else:
+        rays = -(-n // 32)
+        o = rng.uniform(0.2, 0.8, size=(rays, 1, 3))
+        d = rng.normal(size=(rays, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t = (np.arange(32) + 0.5)[None, :, None] * (rng.uniform(0.002, 0.02, size=(rays, 1, 1)))
+        x = np.clip(o + d * t, 0.0, 1.0 - 1e-6).reshape(-1, 3)[:n]
+    edge = np.array([[0.0, 0.0, 0.0], [1 - 1e-6] * 3, [1.0, 1.0, 1.0], [0.0, 1.0, 1 - 1e-6], [1.0, 0.5, 0.0]])
+    x[: min(n, 5)] = edge[: min(n, 5)]
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("order", ["uniform", "ray_ordered"])
+@pytest.mark.parametrize("n", [1, 255, 524_288 + 37])
+@pytest.mark.parametrize("log2_table", [14, 19])
+@pytest.mark.parametrize("levels", [1, 5, 16])
+@pytest.mark.parametrize("features", [1, 2, 4, 8])
+def test_hash_encode_kernel_matches_plain(cuda_device, features, levels, log2_table, n, order):
+    """Every feature width, whole and incomplete level groups, output rows
+    that are and are not whole 16-byte vectors, dense-only and mostly hashed
+    grids, one block and thousands, against ``hashgrid.encode`` level by
+    level (tolerance: a f32 blend of 8 values in [-1, 1], FMA vs mul+add)."""
+    cfg = HashGridConfig(levels=levels, features=features, log2_table=log2_table)
+    g = torch.Generator(device=cuda_device).manual_seed(features * 100 + levels)
+    table = torch.rand((levels * cfg.table_size, features), generator=g, device=cuda_device) * 2.0 - 1.0
+    x = _points(n, order, seed=levels, dev=cuda_device)
     before = hash_encode.launches
     got = hash_encode(table, x, cfg)
     torch.cuda.synchronize()
     assert hash_encode.launches == before + 1
     want = encode(table, x, cfg)
-    assert got.shape == want.shape
-    assert float((got - want).abs().max()) <= TOL
+    assert got.shape == want.shape == (n, cfg.out_dim)
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs().reshape(n, levels, features).amax(dim=(0, 2))
+    assert float(err.max()) <= TOL, err.tolist()
+
+
+def test_hash_encode_kernel_small_grid(cuda_device):
+    """A grid whose levels are all dense or barely hashed (n_min 4)."""
+    cfg = HashGridConfig(levels=4, log2_table=12, n_min=4, n_max=64)
+    table, x = _inputs(cfg, 33, seed=2, dev=cuda_device)
+    got = hash_encode(table, x, cfg)
+    torch.cuda.synchronize()
+    assert float((got - encode(table, x, cfg)).abs().max()) <= TOL
+
+
+def test_hash_encode_kernel_rejects_unaligned_and_strided_inputs(cuda_device):
+    cfg = HashGridConfig(levels=2, log2_table=8, n_min=4, n_max=16)
+    table, x = _inputs(cfg, 64, seed=0, dev=cuda_device)
+    shifted = torch.zeros(table.numel() + 2, device=cuda_device)[2:].view(table.shape)  # 8 bytes off
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    before = hash_encode.launches
+    with pytest.raises(ValueError, match="aligned"):
+        hash_encode(shifted, x, cfg)
+    strided = x.t().contiguous().t()  # (N, 3) with the points along the fast axis
+    assert strided.shape == x.shape and not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        hash_encode(table, strided, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        hash_encode(table.repeat(1, 2)[:, ::2], x, cfg)
+    assert hash_encode.launches == before
 
 
 def test_hash_encode_kernel_empty_input_launches_nothing(cuda_device):
