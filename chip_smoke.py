@@ -6,15 +6,20 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 Phases:
-(1) build the three kernels from ``nerf_prv_tpu_torch/ops/csrc``, one nvcc
+(1) build the four kernels from ``nerf_prv_tpu_torch/ops/csrc``, one nvcc
     process each, started together;
 (2) each kernel against its plain version at the paths' full shapes, timed
     beside its bound and the library call for the same work:
     ``hash_encode`` against ``hashgrid.encode`` per level, on uniform points
     and on the probe and march points of one served chunk, at three
-    configs; ``row_gather`` (exact) and ``row_scatter_add`` (against
+    configs, and on one training batch's own warmup-march, tight-march and
+    probe points at a training step's three shapes; ``row_gather`` (exact) and ``row_scatter_add`` (against
     ``index_add_`` and a float64 sum, on uniform and on ray-ordered
-    indices) against theirs.  Every kernel time is a device time
+    indices) against theirs; ``hash_encode_backward`` (the table gradient)
+    against a float64 sum within a bound computed from the data and against
+    the sort-based plain version, at both training shapes on uniform points
+    and on a training batch's own march points, with two broken variants
+    that must fail.  Every kernel time is a device time
     (``device_ms``: a replayed CUDA graph of the wrapper's calls), printed
     beside the time of a call through the wrapper (``time_ms``), and the
     two are cross-checked where the kernel outlasts the host;
@@ -30,7 +35,16 @@ Phases:
 (6) one training step through the kernels against the same step through
     the plain versions (loss and every gradient), the same through two
     deliberately broken kernels (which must fail), and one small f32 voxel
-    frame on the card against the CPU.
+    frame on the card against the CPU;
+(7) train the full-width hash field through ``run(scene, ...)`` for the full
+    2,500 steps (forward kernel once or twice and table-gradient kernel
+    once per step), score it on the held-out frames; check the losses, the
+    PSNR and the launch counts; time and profile steps;
+(8) one hash training step through the two hash kernels against the same
+    step through their plain versions (loss and every gradient);
+(9) a short run each of the other training and render options on the card:
+    bf16 Adam moments, the baked train probe, importance resampling, the
+    span-bucketed eval against the unbucketed one, mesh export.
 Any failure exits non-zero.  The line before the last is the kernel table
 as JSON, the last line the device.  It imports nothing of JAX or of
 ``nerf_prv_tpu``.
@@ -84,9 +98,12 @@ from nerf_prv_tpu_torch.nerf.model import NerfConfig, init_params  # noqa: E402
 from nerf_prv_tpu_torch.nerf.rays import grid_cameras, load_dataset, pixel_dirs_cam, ray_sphere  # noqa: E402
 from nerf_prv_tpu_torch.nerf.render import render_views  # noqa: E402
 from nerf_prv_tpu_torch.ops import _build  # noqa: E402
-from nerf_prv_tpu_torch.ops.hash_encode import hash_encode  # noqa: E402
+from nerf_prv_tpu_torch.ops import fused as fused_mod  # noqa: E402
+from nerf_prv_tpu_torch.ops.hash_encode import hash_encode, hash_encode_backward  # noqa: E402
 from nerf_prv_tpu_torch.ops.row_gather import row_gather, row_gather_plain  # noqa: E402
 from nerf_prv_tpu_torch.ops.row_scatter_add import row_scatter_add, row_scatter_add_plain  # noqa: E402
+from nerf_prv_tpu_torch.ops.sorted_grad import _levelwise_indices_weights, table_grad_sorted  # noqa: E402
+from nerf_prv_tpu_torch.scene.ply import load_ply  # noqa: E402
 
 # the hash-encode wrapper's module (the package exports the function under
 # the module's name, so ``import`` yields the function)
@@ -143,6 +160,40 @@ STEP_GRAD_TOL = 1e-5  # max |a - b| / max |b| per parameter
 # Measured 120 dB (the cap, max difference 7.0e-6); 29.3 dB through a
 # gather off by one row
 VOXEL_CPU_PSNR_MIN = 60.0
+
+
+# the hash field that trains: full width (16 levels x 2^19 rows x 2 f32, a
+# 64 MiB table; hidden 64; 4,096 rays), the full 2,500 steps
+HASH_CFG = NerfConfig(field_impl="hash", encode_impl="fused")
+HASH_STEPS = HASH_CFG.n_steps
+# the table gradient's two shapes: 4,096 rays x 48 warmup samples, x 16 tight ones
+BWD_WARM_N = HASH_CFG.train_rays * HASH_CFG.train_warmup_samples
+BWD_TIGHT_N = HASH_CFG.train_rays * HASH_CFG.n_samples
+# the tight step's no-grad probe: 4,096 rays x 12 probes through the forward
+TRAIN_PROBE_N = HASH_CFG.train_rays * HASH_CFG.train_coarse
+# |kernel - sorted plain version| as a share of the largest entry: the plain
+# version takes a run's total as the difference of two entries of one f32
+# cumsum over all N x 16 x 8 updates, so it is the looser of the two
+# (measured 3.9e-5 to 1.3e-4, all of it the plain version's distance from
+# the float64 sum; the kernel's own is 2e-7 to 8e-7)
+SORTED_TOL = 1e-3
+# dB by which the trained hash field's eval PSNR must beat an all-black
+# frame's on the held-out views; measured 44.70 against 19.72 dB, 25.0 dB
+# above, on an H100 80GB HBM3 (700 W)
+HASH_PSNR_MARGIN_DB = 15.0
+# one hash step through the kernels against the plain versions, f32 compute
+# (relative loss difference; worst gradient difference over its max).
+# Measured 0 to 3.9e-7 and 2.1e-5 to 5.2e-5 (the table's, whose plain version
+# sums through one long f32 cumsum; the MLPs' 4e-7 to 6e-7); a table gradient
+# that lands one level too high gives 1.1 to 1.6
+HASH_STEP_LOSS_TOL = 1e-5
+HASH_STEP_GRAD_TOL = 1e-3
+# dB between the span-bucketed and the unbucketed render of two trained
+# frames; measured 49.67 dB with 1.6% of the values changed, on an H100 80GB
+# HBM3 (700 W)
+SPAN_BUCKET_PSNR_MIN = 40.0
+SPAN_BUCKET_CHUNK = 1 << 15
+OPTION_STEPS = 150  # depth of each option's short training run
 
 
 def log(*a):
@@ -258,7 +309,7 @@ def card_line() -> str:
 def phase_build():
     log("== phase 1: build")
     t0 = time.perf_counter()
-    logs = _build.build(["hash_encode", "row_gather", "row_scatter_add"])
+    logs = _build.build(["hash_encode", "hash_encode_backward", "row_gather", "row_scatter_add"])
     log(f"built in {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -358,6 +409,17 @@ def check_encode(table, x, cfg: HashGridConfig, label: str) -> float:
     return float(err.max())
 
 
+def encode_row(table, pts, cfg: HashGridConfig, label: str, max_err: float) -> dict:
+    """One shape of K1's table: its times beside the plain version's and its bound."""
+    row = dict(shape=label, max_abs_err=max_err, library_ms=None)
+    row.update(kernel_times(lambda: hash_encode(table, pts, cfg), f"hash_encode {label}"))
+    row["plain_ms"] = time_ms(lambda: encode(table, pts, cfg), iters=3, warmup=1)
+    row["bound_ms"], row["bound_by"] = encode_bound_ms(pts, cfg)
+    log(f"hash_encode {label}: {times_text(row)}, plain {row['plain_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = {row['bound_ms'] / row['ms']:.3f} of the time")
+    return row
+
+
 def encode_point_sets(dev, params, ds, cfg: NerfConfig) -> dict:
     """The points K1 is checked and timed on: uniform ones with the cube's
     boundaries among them, and one served chunk's, at both path shapes."""
@@ -402,15 +464,7 @@ def phase_kernel_check(dev, params, ds, nerf_cfg: NerfConfig) -> dict:
         check_encode(t2, ray_march, other, f"{note}, served march points")
         del t2
 
-    rows = []
-    for label, pts in sets.items():
-        row = dict(shape=label, max_abs_err=max_err, library_ms=None)
-        row.update(kernel_times(lambda: hash_encode(table, pts, cfg), f"hash_encode {label}"))
-        row["plain_ms"] = time_ms(lambda: encode(table, pts, cfg), iters=3, warmup=1)
-        row["bound_ms"], row["bound_by"] = encode_bound_ms(pts, cfg)
-        log(f"hash_encode {label}: {times_text(row)}, plain {row['plain_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = {row['bound_ms'] / row['ms']:.3f} of the time")
-        rows.append(row)
+    rows = [encode_row(table, pts, cfg, label, max_err) for label, pts in sets.items()]
     head = rows[1]  # the march's own points
     return dict(
         name="hash_encode", route="cuda",
@@ -800,7 +854,8 @@ def rays_per_s_line(ds, dt: float) -> str:
 
 
 _FAMILIES = (  # first match wins
-    ("own kernels", ("hash_encode_kernel", "row_gather_kernel", "row_scatter_add_kernel")),
+    ("own kernels", ("hash_encode_kernel", "hash_encode_backward_kernel", "row_gather_kernel",
+                     "row_scatter_add_kernel")),
     ("GEMMs", ("gemm", "nvjet", "cutlass", "cublas", "splitK")),
     ("Adam", ("multi_tensor_apply",)),
     ("copies and cats", ("CatArray", "copy_kernel", "Memcpy", "Memset")),
@@ -817,7 +872,7 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def profile_device(fn, label: str, wall_s: float, top: int = 20, tries: int = 3):
+def profile_device(fn, label: str, wall_s: float, top: int = 20, tries: int = 3, named: tuple = ()):
     """Device time by kernel over one call of ``fn``, and the device's busy
     share of ``wall_s``, the same call's wall time without the profiler.
 
@@ -830,7 +885,7 @@ def profile_device(fn, label: str, wall_s: float, top: int = 20, tries: int = 3)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    wrappers = (hash_encode, row_gather, row_scatter_add)
+    wrappers = (hash_encode, hash_encode_backward, row_gather, row_scatter_add)
     for attempt in range(1, tries + 1):
         sync()
         before = sum(w.launches for w in wrappers)
@@ -861,6 +916,9 @@ def profile_device(fn, label: str, wall_s: float, top: int = 20, tries: int = 3)
         families[kernel_family(name)] = (f_us + us, f_count + count)
     log("  by family: " + "; ".join(
         f"{fam} {us:.0f} us in {count}" for fam, (us, count) in sorted(families.items(), key=lambda kv: -kv[1][0])))
+    for key in named:
+        us, count = (sum(v[i] for name, v in by_name.items() if key in name) for i in (0, 1))
+        log(f"  {key}: {us:.1f} us in {count} launches")
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {us:12.0f} us  {count:6d}x  {name[:100]}")
     return families, seen == launched
@@ -1144,6 +1202,416 @@ def phase_step_vs_plain(dev, params, cfg, source: BatchSource, test_ds):
         raise SystemExit("the render tolerance does not catch a gather off by one row")
 
 
+def train_march_points(source: BatchSource, cfg: NerfConfig, params=None, seed: int = 21):
+    """(cfg.train_rays * cfg.n_samples, 3) positions of one training batch's
+    march, ray by ray, placed as ``render_rays`` places them: stratified
+    samples on each ray's chord, or with ``params`` and ``cfg.train_coarse``
+    inside the interval the no-grad probe of that field tightens it to."""
+    dev = source.pixels.device
+    (o, d, _, _), jitter = source.draw(torch.Generator(device=dev).manual_seed(seed), cfg)
+    tmin, tmax, valid = ray_sphere(o, d)
+    if params is not None and cfg.train_coarse > 0:
+        with torch.no_grad():
+            t_lo, t_hi, any_occ = render_mod._tighten_interval(
+                params, o, d, tmin, tmax, valid, cfg.train_coarse, cfg)
+        tmin, tmax = torch.where(any_occ, t_lo, tmin), torch.where(any_occ, t_hi, tmax)
+    base = torch.arange(cfg.n_samples, dtype=torch.float32, device=dev)[None, :]
+    ts = tmin[:, None] + (base + jitter) * ((tmax - tmin) / cfg.n_samples)[:, None]
+    pos = torch.clamp(o[:, None, :] + d[:, None, :] * ts[..., None], 0.0, 1.0 - 1e-6)
+    return pos.reshape(-1, 3).contiguous()
+
+
+def train_probe_points(source: BatchSource, cfg: NerfConfig, seed: int = 21):
+    """(cfg.train_rays * cfg.train_coarse, 3) positions of the same batch's
+    no-grad probe, ray by ray, where ``_tighten_interval`` places them."""
+    dev = source.pixels.device
+    (o, d, _, _), _ = source.draw(torch.Generator(device=dev).manual_seed(seed), cfg)
+    tmin, tmax, _ = ray_sphere(o, d)
+    pos, _ = render_mod._chord_midpoints(o, d, tmin, tmax, cfg.train_coarse)
+    return pos.reshape(-1, 3).contiguous()
+
+
+def table_grad_updates(x, g, cfg: HashGridConfig) -> tuple:
+    """The materialised updates of the table gradient: (rows (M,) int64,
+    updates (M, F) f32) with M = levels * N * 8, as the sort-based plain
+    version builds them."""
+    n, f = x.shape[0], cfg.features
+    idx, w = _levelwise_indices_weights(x, cfg)
+    upd = w[..., None] * g.reshape(n, cfg.levels, f).permute(1, 0, 2)[:, :, None, :]
+    return idx.reshape(-1), upd.reshape(-1, f).contiguous()
+
+
+def table_grad_reference(x, g, cfg: HashGridConfig) -> tuple:
+    """(float64 sum, per-element tolerance, most updates on one row) of the
+    table gradient.
+
+    The tolerance is the f32 summation bound itself, as for the row
+    scatter-add: a row that receives k updates is the result of k rounded
+    adds, each off by at most 2^-24 of a partial sum that never exceeds the
+    row's sum of |w g|, in whatever order the atomics ran; one more term
+    covers the rounding of each product w * g.
+    """
+    rows = cfg.levels * cfg.table_size
+    idx, upd = table_grad_updates(x, g, cfg)
+    upd = upd.double()
+    want = torch.zeros((rows, cfg.features), dtype=torch.float64, device=x.device).index_add_(0, idx, upd)
+    mag = torch.zeros_like(want).index_add_(0, idx, upd.abs())
+    count = torch.bincount(idx, minlength=rows).double()[:, None]
+    return want, (count + 1.0) * 2.0 ** -24 * mag, int(count.max())
+
+
+def table_grad_excess(d_table, want, tol) -> float:
+    """Largest |d_table - float64 sum| beyond the per-element bound (<= 0: within)."""
+    return float(((d_table.double() - want).abs() - tol).max())
+
+
+def bwd_drops_a_corner(x, g, cfg: HashGridConfig):
+    """A broken table gradient: the kernel's, less every point's last corner."""
+    out = hash_encode_backward(x, g, cfg)
+    idx, upd = table_grad_updates(x, g, cfg)
+    return out.index_add_(0, idx[7::8], -upd[7::8])
+
+
+def bwd_shifts_a_level(x, g, cfg: HashGridConfig):
+    """A broken table gradient: level l's output gradient added into level
+    l + 1's rows (the last level's into level 0's)."""
+    return hash_encode_backward(x, torch.roll(g, cfg.features, dims=1).contiguous(), cfg)
+
+
+def backward_bound_ms(x, cfg: HashGridConfig) -> tuple:
+    """Least time for one table-gradient call on ``x``: x and g read once
+    and the whole output written once over HBM (as for the row scatter-add:
+    zeroing first and adding into the touched rows afterwards is this
+    kernel's choice, not the function's need), or its f32 arithmetic at the
+    f32 peak."""
+    n = x.shape[0]
+    rows = cfg.levels * cfg.table_size
+    bytes_moved = 4 * (n * 3 + n * cfg.out_dim + rows * cfg.features)
+    # per (point, level): 3 scale + 3 frac + 3 (1 - frac), then per corner 2
+    # weight products, F products and F adds
+    ops = n * cfg.levels * (9 + 8 * (2 + 2 * cfg.features))
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_backward(x, g, cfg: HashGridConfig, label: str, timed: bool = False) -> dict:
+    """One table-gradient shape: the kernel against a float64 sum within the
+    data-computed bound and against the sort-based plain version, two broken
+    variants that must fail the same check, and (``timed``) its times."""
+    got = hash_encode_backward(x, g, cfg)
+    plain = table_grad_sorted(x, g, cfg)
+    sync()
+    want, tol, most = table_grad_reference(x, g, cfg)
+    excess = table_grad_excess(got, want, tol)
+    scale = float(want.abs().max())
+    vs_f64 = float((got.double() - want).abs().max())
+    vs_plain = float((got - plain).abs().max())
+    log(f"hash_encode_backward {label}: at most {most} updates on a row, |kernel - f64| max {vs_f64:.3e} "
+        f"(largest bound {float(tol.max()):.3e}, largest entry {scale:.3e}), |kernel - sorted| {vs_plain:.3e} "
+        f"= {vs_plain / scale:.2e} of the largest entry (need <= {SORTED_TOL}), "
+        f"|sorted - f64| {float((plain.double() - want).abs().max()):.3e}")
+    if got.shape != plain.shape or not bool(torch.isfinite(got).all()) or excess > 0.0:
+        raise SystemExit(f"hash_encode_backward {label}: off the float64 sum by {excess:.3e} beyond the bound")
+    if vs_plain > SORTED_TOL * scale:
+        raise SystemExit(f"hash_encode_backward {label} disagrees with the sorted plain version")
+    for name, broken in (("drops a corner", bwd_drops_a_corner), ("shifts a level", bwd_shifts_a_level)):
+        bad = table_grad_excess(broken(x, g, cfg), want, tol)
+        log(f"  broken on purpose, {name}: {bad:.3e} beyond the bound -> {'caught' if bad > 0 else 'NOT caught'}")
+        if not bad > 0:
+            raise SystemExit(f"the table gradient's bound does not catch a kernel that {name}")
+    row = dict(shape=label, max_abs_err=vs_f64, ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0)
+    row["bound_ms"], row["bound_by"] = backward_bound_ms(x, cfg)
+    del plain, want, tol
+    if timed:
+        row.update(kernel_times(lambda: hash_encode_backward(x, g, cfg), f"hash_encode_backward {label}"))
+        row["plain_ms"] = time_ms(lambda: table_grad_sorted(x, g, cfg), iters=3, warmup=1)
+        # the library call sums updates that something else has to write
+        # first: that pass (rows and weighted gradients of every corner, in
+        # PyTorch ops) is timed beside it and is not part of library_ms
+        updates_ms = time_ms(lambda: table_grad_updates(x, g, cfg), iters=3, warmup=1)
+        idx, upd = table_grad_updates(x, g, cfg)
+        rows = cfg.levels * cfg.table_size
+        row["library_ms"] = device_ms(
+            lambda: torch.zeros((rows, cfg.features), device=x.device).index_add_(0, idx, upd), iters=5)
+        del idx, upd
+        log(f"hash_encode_backward {label}: {times_text(row)} (memset included), sorted plain version "
+            f"{row['plain_ms']:.4f} ms, zeros + index_add_ on the materialised updates {row['library_ms']:.4f} ms "
+            f"(materialising them {updates_ms:.4f} ms more), bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = {row['bound_ms'] / row['ms']:.3f} of the time")
+    return row
+
+
+def phase_backward_kernel(dev, params, source: BatchSource, k_hash: dict) -> dict:
+    log("== phase 2c: both hash kernels at a training step's shapes: hash_encode against hashgrid.encode, "
+        "hash_encode_backward against a float64 sum and the sorted plain version")
+    cfg = HASH_CFG.grid
+    warm_cfg, _ = train_mod._phases(HASH_CFG, warm_start=False)[0]
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def cotangent(n, c):
+        return torch.randn((n, c.out_dim), generator=gen, device=dev)
+
+    uniform = torch.rand((BWD_WARM_N, 3), generator=gen, device=dev)
+    uniform[:3] = torch.tensor([[0.0, 0.0, 0.0], [1 - 1e-6] * 3, [1.0, 1.0, 1.0]], device=dev)
+    warm_pts = train_march_points(source, warm_cfg)
+    tight_pts = train_march_points(source, HASH_CFG, params)
+    if (warm_pts.shape[0], tight_pts.shape[0]) != (BWD_WARM_N, BWD_TIGHT_N):
+        raise SystemExit("the training march's shapes are not the ones the table gradient is timed at")
+    res = [int(r) for r in cfg.resolutions()]
+    for name, pts in (("warmup", warm_pts), ("tight", tight_pts)):
+        log(f"{name} march points {tuple(pts.shape)}: share in the cell of the point before, by level: "
+            + " ".join(f"{same_cell_share(pts, r):.2f}" for r in res))
+    # the forward at the three shapes a training step launches it at, on the
+    # batch's own points, through the field whose probe placed them
+    probe_pts = train_probe_points(source, HASH_CFG)
+    if probe_pts.shape[0] != TRAIN_PROBE_N:
+        raise SystemExit("the training probe's shape is not the one the encode kernel is held at")
+    for label, pts in ((f"warmup step's march N={BWD_WARM_N} ray-ordered", warm_pts),
+                       (f"tight step's march N={BWD_TIGHT_N} ray-ordered", tight_pts),
+                       (f"tight step's probe N={TRAIN_PROBE_N} ray-ordered", probe_pts)):
+        err = check_encode(params["table"], pts, cfg, f"default config, {label}")
+        k_hash["shapes"].append(encode_row(params["table"], pts, cfg, label, err))
+        k_hash["max_abs_err"] = max(k_hash["max_abs_err"], err)
+    sets = {
+        f"warmup N={BWD_WARM_N} ray-ordered": warm_pts,
+        f"warmup N={BWD_WARM_N} uniform": uniform,
+        f"tight N={BWD_TIGHT_N} ray-ordered": tight_pts,
+        f"tight N={BWD_TIGHT_N} uniform": uniform[:BWD_TIGHT_N].contiguous(),
+    }
+    rows = [check_backward(pts, cotangent(pts.shape[0], cfg), cfg, label, timed=True)
+            for label, pts in sets.items()]
+    ragged = uniform[: BWD_TIGHT_N + 37].contiguous()
+    for other in (HashGridConfig(log2_table=14), HashGridConfig(features=4)):
+        note = f"log2_table={other.log2_table} features={other.features}"
+        check_backward(ragged, cotangent(ragged.shape[0], other), other, f"{note}, uniform N={ragged.shape[0]}")
+        check_backward(tight_pts, cotangent(BWD_TIGHT_N, other), other, f"{note}, tight march points")
+
+    # where the time goes by level: the four coarsest levels alone (dense,
+    # a few thousand rows for millions of adds) against all sixteen, each
+    # less the memset of its own table (a call on no points)
+    coarse = HashGridConfig(levels=4, n_max=res[3])
+    if [int(r) for r in coarse.resolutions()] != res[:4]:
+        raise SystemExit("the coarse config does not reproduce the first four levels")
+    nothing = torch.zeros((0, 3), device=dev)
+    for label, pts in (("warmup ray-ordered", warm_pts), ("warmup uniform", uniform), ("tight ray-ordered", tight_pts)):
+        g16, g4 = cotangent(pts.shape[0], cfg), cotangent(pts.shape[0], coarse)
+        t16 = device_ms(lambda: hash_encode_backward(pts, g16, cfg))
+        t4 = device_ms(lambda: hash_encode_backward(pts, g4, coarse))
+        z16 = device_ms(lambda: hash_encode_backward(nothing, g16[:0], cfg))
+        z4 = device_ms(lambda: hash_encode_backward(nothing, g4[:0], coarse))
+        log(f"hash_encode_backward by level, {label}: all 16 levels {t16:.4f} ms (memset {z16:.4f}), levels 0-3 "
+            f"alone {t4:.4f} ms (memset {z4:.4f}): {(t4 - z4) / (t16 - z16):.3f} of the kernel's own time")
+    head = rows[0]
+    return dict(
+        name="hash_encode_backward", route="cuda",
+        source="nerf_prv_tpu_torch/ops/csrc/hash_encode_backward.cu",
+        replaces="nerf_prv_tpu/ops/sorted_grad.py:100",
+        note="the backward of nerf_prv_tpu/ops/hash_encode.py:31, which the JAX package computes with XLA ops",
+        launches=0, **{k: head[k] for k in
+                       ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=head["shape"], shapes=rows,
+    )
+
+
+def phase_hash_train(dev, root: str, train_json: str, test_json: str, source: BatchSource,
+                     k_hash: dict, k_bwd: dict, card: str):
+    cfg = dataclasses.replace(HASH_CFG, n_steps=HASH_STEPS)
+    log(f"== phase 7: train the full-width hash field, {cfg.n_steps} steps x {cfg.train_rays} rays, "
+        f"{N_TRAIN_FRAMES} frames {CAMERA.width}x{CAMERA.height}")
+    snap = os.path.join(root, "hash.ingp")
+    losses = []
+    real_train = train_mod.train
+
+    def recording_train(*a, **kw):
+        params, ls = real_train(*a, **kw)
+        losses.append(ls)
+        return params, ls
+
+    api_mod.train = recording_train
+    hash_encode.launches = 0
+    hash_encode_backward.launches = 0
+    t0 = time.perf_counter()
+    try:
+        metrics = run(train_json, test_transforms=test_json, save_snapshot_path=snap, cfg=cfg, seed=0, device=dev)
+    finally:
+        api_mod.train = real_train
+    sync()
+    wall = time.perf_counter() - t0
+    launched = (hash_encode.launches, hash_encode_backward.launches)
+    k_hash["launches_serving"] = k_hash["launches"]
+    k_hash["launches"], k_bwd["launches"] = launched
+    ls = losses[0]
+    first, last = float(ls[:20].mean()), float(ls[-100:].mean())
+    log(f"run: {wall:.2f} s, metrics {metrics}")
+    log(f"losses: {ls.size} steps, first 20 mean {first:.6f}, last 100 mean {last:.6f} "
+        f"(need <= {LOSS_DROP} of the first)")
+    if ls.size != cfg.n_steps or not np.isfinite(ls).all():
+        raise SystemExit("hash training losses are missing or not finite")
+    if not last <= LOSS_DROP * first:
+        raise SystemExit("hash training did not bring the loss down")
+
+    params = load_snapshot(snap, cfg, device=dev)
+    test_ds = load_dataset(test_json)
+    base = black_psnr(test_ds)
+    log(f"eval PSNR {metrics['PSNR']:.3f} dB, SSIM {metrics['SSIM']:.4f}; an all-black frame scores "
+        f"{base:.3f} dB (need >= {HASH_PSNR_MARGIN_DB} dB above it)")
+    if not (math.isfinite(metrics["PSNR"]) and metrics["PSNR"] >= base + HASH_PSNR_MARGIN_DB):
+        raise SystemExit("the trained hash field does not beat a black frame by the margin")
+
+    hash_encode.launches = 0
+    dt = timed_eval(params, test_ds, cfg)
+    eval_k1 = hash_encode.launches
+    # as the voxel path's gathers and scatter-adds: a warmup step encodes once
+    # (the march), a tight step twice (the no-grad probe, then the march), and
+    # every step takes the table's gradient once
+    want_k1, want_bwd = expected_train_launches(cfg)
+    log(f"launches in run: hash_encode {launched[0]} (train {want_k1} predicted + eval {eval_k1}), "
+        f"hash_encode_backward {launched[1]} (train {want_bwd} predicted)")
+    if launched != (want_k1 + eval_k1, want_bwd):
+        raise SystemExit("the hash launch counts are not the ones the code predicts")
+    if min(launched) == 0:
+        raise SystemExit("the hash training path launched no kernel")
+    log(f"eval_nerf (trained hash field): {rays_per_s_line(test_ds, dt)}, {eval_k1} hash_encode launches ({card})")
+
+    warm_cfg, _ = train_mod._phases(cfg, warm_start=False)[0]
+    fresh = init_params(torch.Generator(device=dev).manual_seed(5), cfg, device=dev)
+    warm_ms = time_steps(fresh, warm_cfg, source, 30, seed=6)
+    del fresh
+    tight_ms = time_steps(params, cfg, source, 60, seed=7)
+    log(f"ms/step (host clock, {card}): warmup {warm_ms:.4f} ({warm_cfg.n_samples} samples, 1 encode + 1 table "
+        f"gradient), tight {tight_ms:.4f} ({cfg.n_samples} samples after a {cfg.train_coarse}-probe, 2 encodes + "
+        f"1 table gradient)")
+    step = make_stepper(params, cfg, source, seed=8)
+    for _ in range(3):
+        step()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("3 tight hash steps under torch.cuda.set_sync_debug_mode('error'): no host sync")
+    profile_device(step, "one tight hash training step", tight_ms * 1e-3,
+                   named=("hash_encode_kernel", "hash_encode_backward_kernel"))
+    return params, cfg
+
+
+@contextlib.contextmanager
+def hash_ops_plain():
+    """Route the fused encode's two kernels to their plain versions."""
+    saved = (fused_mod.hash_encode, fused_mod.hash_encode_backward)
+    fused_mod.hash_encode, fused_mod.hash_encode_backward = encode, table_grad_sorted
+    try:
+        yield
+    finally:
+        fused_mod.hash_encode, fused_mod.hash_encode_backward = saved
+
+
+def phase_hash_step_vs_plain(dev, params, cfg: NerfConfig, source: BatchSource):
+    log("== phase 8: one hash step through the kernels against the same step through the plain versions")
+    for name, c in (("f32", dataclasses.replace(cfg, compute_dtype=torch.float32)), ("bf16", cfg)):
+        batch, jitter = source.draw(torch.Generator(device=dev).manual_seed(13), c)
+        k1, k1b = hash_encode.launches, hash_encode_backward.launches
+        through_kernels = loss_and_grads(params, batch, jitter, c)
+        if (hash_encode.launches - k1, hash_encode_backward.launches - k1b) != (2, 1):
+            raise SystemExit("a tight hash step must launch hash_encode twice and hash_encode_backward once")
+        k1, k1b = hash_encode.launches, hash_encode_backward.launches
+        with hash_ops_plain():
+            through_plain = loss_and_grads(params, batch, jitter, c)
+        if (hash_encode.launches, hash_encode_backward.launches) != (k1, k1b):
+            raise SystemExit("the plain hash step launched a kernel")
+        grads = through_kernels[1]
+        if not all(bool(torch.isfinite(v).all()) for v in grads.values()):
+            raise SystemExit("non-finite gradient in the hash step")
+        d_loss, d_grad = step_disagreement(through_plain, through_kernels)
+        per = {k: float((grads[k] - through_plain[1][k]).abs().max())
+               / max(float(through_plain[1][k].abs().max()), 1e-30) for k in grads}
+        limits = f"(need <= {HASH_STEP_LOSS_TOL} and <= {HASH_STEP_GRAD_TOL})" if name == "f32" else "(printed only)"
+        log(f"hash step, kernels vs plain, {name} compute: loss {through_kernels[0]:.8f}, relative loss diff "
+            f"{d_loss:.3e}, worst gradient diff {d_grad:.3e} of its max {limits}; by parameter: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in per.items())
+            + f"; |table grad| max {float(grads['table'].abs().max()):.3e}, rows touched "
+            f"{int((grads['table'] != 0).any(dim=1).sum())}")
+        if name == "f32" and not (d_loss <= HASH_STEP_LOSS_TOL and d_grad <= HASH_STEP_GRAD_TOL):
+            raise SystemExit("the hash step through the kernels disagrees with the plain step")
+        if name == "f32":
+            # a table gradient that lands a level too high must not pass
+            saved = fused_mod.hash_encode_backward
+            fused_mod.hash_encode_backward = bwd_shifts_a_level
+            try:
+                bad = step_disagreement(through_plain, loss_and_grads(params, batch, jitter, c))
+            finally:
+                fused_mod.hash_encode_backward = saved
+            caught = bad[1] > HASH_STEP_GRAD_TOL
+            log(f"  broken on purpose, a table gradient that shifts a level: gradient diff {bad[1]:.3e} -> "
+                f"{'caught' if caught else 'NOT caught'}")
+            if not caught:
+                raise SystemExit("the hash step tolerance does not catch a shifted table gradient")
+
+
+def phase_options(dev, root: str, train_json: str, vparams, vcfg, test_ds, card: str):
+    log(f"== phase 9: the other options on the card, {OPTION_STEPS} steps each")
+    train_ds = load_dataset(train_json)
+    short = dict(n_steps=OPTION_STEPS, train_warmup_steps=50)
+    runs = (
+        ("bf16 Adam moments, voxel", dataclasses.replace(vcfg, adam_moment_dtype="bfloat16", **short)),
+        ("bf16 Adam moments, hash", dataclasses.replace(HASH_CFG, adam_moment_dtype="bfloat16", **short)),
+        ("baked train probe, refresh 10", dataclasses.replace(vcfg, train_probe_refresh=10, **short)),
+        ("importance resampling, n_importance=8", dataclasses.replace(vcfg, n_importance=8, **short)),
+        ("encode_impl='sorted' (the plain table gradient), hash",
+         dataclasses.replace(HASH_CFG, encode_impl="sorted", n_steps=10, train_warmup_steps=5)),
+    )
+    for name, cfg in runs:
+        g0 = row_gather.launches
+        t0 = time.perf_counter()
+        _, ls = train_mod.train(train_ds, cfg, seed=0, device=dev)
+        sync()
+        dt = time.perf_counter() - t0
+        first, last = float(ls[:5].mean()), float(ls[-5:].mean())
+        log(f"{name}: {ls.size} steps in {dt:.2f} s, loss {first:.6f} -> {last:.6f}"
+            + (f", {row_gather.launches - g0} row_gather launches" if cfg.field_impl == "voxel" else ""))
+        if ls.size != cfg.n_steps or not np.isfinite(ls).all() or not last < first:
+            raise SystemExit(f"{name}: losses missing, not finite or not falling")
+
+    # two frames in chunks of 32,768 rays: only whole chunks of short-span
+    # rays switch to the short march, and one frame's sphere does not fill
+    # the voxel field's default chunk
+    view = (test_ds.origins[:2], test_ds.rotations[:2])
+    bucketed = dataclasses.replace(vcfg, render_span_bucket=True)
+    sync()
+    t0 = time.perf_counter()
+    a = render_views(vparams, *view, test_ds.camera, vcfg, chunk=SPAN_BUCKET_CHUNK)
+    sync()
+    t1 = time.perf_counter()
+    b = render_views(vparams, *view, test_ds.camera, bucketed, chunk=SPAN_BUCKET_CHUNK)
+    sync()
+    t2 = time.perf_counter()
+    psnr = float(mse2psnr(torch.mean((a - b) ** 2)))
+    log(f"span-bucketed render of two trained voxel frames against the unbucketed one: PSNR {psnr:.2f} dB "
+        f"(need >= {SPAN_BUCKET_PSNR_MIN}), share of values that differ {float((a != b).float().mean()):.4f}, "
+        f"{(t1 - t0) * 1e3:.1f} ms unbucketed, {(t2 - t1) * 1e3:.1f} ms bucketed ({card})")
+    if not (torch.isfinite(b).all() and psnr >= SPAN_BUCKET_PSNR_MIN):
+        raise SystemExit("the span-bucketed render strays from the unbucketed one")
+    if torch.equal(a, b):
+        raise SystemExit("the span bucket switched no chunk to the short march")
+
+    mesh = os.path.join(root, "mesh.ply")
+    video = os.path.join(root, "video", "clip.mp4")
+    one_view = write_scene(root, dev, "path", 2, turn=0.25)
+    run(train_json, cfg=vcfg, load_snapshot_path=os.path.join(root, "voxel.ingp"), device=dev,
+        save_mesh_path=mesh, marching_cubes_res=64, video_camera_path=one_view, video_output=video)
+    pts, cols = load_ply(mesh)
+    frames = sorted(os.listdir(os.path.join(root, "video", "clip_frames")))
+    log(f"save_mesh_path: {len(pts)} surface points at 64^3 (colours {None if cols is None else cols.shape}), "
+        f"centre {np.round(pts.mean(0), 3).tolist() if len(pts) else None}; video frames {frames}")
+    if len(pts) == 0 or cols is None or len(frames) != 2:
+        raise SystemExit("mesh export or video frames are missing")
+    # the trained sphere: radius 0.3 about the volume's centre
+    radius = np.linalg.norm(pts - 0.5, axis=1)
+    if not 0.2 < float(np.median(radius)) < 0.35:
+        raise SystemExit(f"the exported surface is not the trained sphere (median radius {np.median(radius):.3f})")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -1168,8 +1636,9 @@ def main() -> int:
         source = BatchSource(load_dataset(train_json), dev)
         cfg, params = make_hash_field(dev)
         k_hash = phase_kernel_check(dev, params, load_dataset(test_json), cfg)
+        k_bwd = phase_backward_kernel(dev, params, source, k_hash)
         k_gather, k_scatter, tight_us = phase_row_kernels(dev, source)
-        rows = [r for k in (k_hash, k_gather, k_scatter) for r in k["shapes"]]
+        rows = [r for k in (k_hash, k_bwd, k_gather, k_scatter) for r in k["shapes"]]
         compared = sum(bool(r.get("call_checked")) for r in rows)
         log(f"device time against call time: compared on {compared} of {len(rows)} shapes")
         if compared == 0:
@@ -1180,9 +1649,13 @@ def main() -> int:
         vparams, vcfg, test_ds = phase_train(
             dev, root, train_json, test_json, source, k_gather, k_scatter, tight_us, card)
         phase_step_vs_plain(dev, vparams, vcfg, source, test_ds)
+        hparams, hcfg = phase_hash_train(dev, root, train_json, test_json, source, k_hash, k_bwd, card)
+        phase_hash_step_vs_plain(dev, hparams, hcfg, source)
+        del hparams
+        phase_options(dev, root, train_json, vparams, vcfg, test_ds, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [k_hash, k_gather, k_scatter]}))
+    print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,15 @@
 """High-level NeRF API mirroring the reference's ``run.py`` semantics.
 
 Counterpart of ``nerf_prv_tpu/nerf/api.py``: train a field or load a
-snapshot, score it against a test set, render screenshots.
+snapshot, score it against a test set, render screenshots, export the
+surface and render a camera-path video.
 
 - :func:`train_nerf`        — ``--train --scene ... --n_steps ...``
 - :func:`eval_nerf`         — ``--test_transforms ... --save_metrics ...``
 - :func:`screenshot_nerf`   — ``--screenshot_transforms ... --screenshot_dir``
 - :func:`run`               — all of the above in one call, as the command line does.
 
-Mesh export and video are not ported yet.  Training runs on the ``device``
+Training runs on the ``device``
 the caller names (the card by default); renders and metrics run on the
 device of the parameters.
 """
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..convert import params_from_numpy, params_to_numpy
+from .extract import render_video, save_geometry
 from .metrics import evaluate_pair, mse2psnr
 from .model import NerfConfig
 from .rays import RayDataset, load_dataset
@@ -181,12 +183,17 @@ def run(
     seed: int = 0,
     load_snapshot_path: Optional[str] = None,
     save_snapshot_path: Optional[str] = None,
+    save_mesh_path: Optional[str] = None,
+    marching_cubes_res: int = 128,
+    video_camera_path: Optional[str] = None,
+    video_output: str = "video.mp4",
+    video_fps: int = 30,
     device="cuda",
 ) -> Optional[Dict[str, float]]:
     """In-process equivalent of one ``run.py`` invocation, on ``device``:
-    train on ``scene`` (or load a snapshot instead), then score and
-    screenshot.  The reference's mesh and video arguments are not taken
-    yet.
+    train on ``scene`` (or load a snapshot instead), then score,
+    screenshot, export the surface (``save_mesh_path``, sampled at
+    ``marching_cubes_res``^3) and render a camera-path video.
     """
     cfg = cfg or NerfConfig()
     if n_steps is not None:
@@ -204,4 +211,8 @@ def run(
             save_metrics(save_metrics_path, metrics)
     if screenshot_transforms and screenshot_dir:
         screenshot_nerf(params, screenshot_transforms, screenshot_dir, cfg)
+    if save_mesh_path:
+        save_geometry(params, cfg, save_mesh_path, resolution=marching_cubes_res)
+    if video_camera_path:
+        render_video(params, video_camera_path, video_output, cfg, fps=video_fps)
     return metrics

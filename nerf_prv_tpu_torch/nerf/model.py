@@ -17,6 +17,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..ops.fused import encode_fused
+from ..ops.sorted_grad import encode_sorted
 from .hashgrid import HashGridConfig, encode, init_table
 from .voxelfield import init_voxel_params, voxel_density_raw, voxel_field
 
@@ -51,8 +52,9 @@ class NerfConfig:
     adam_moment_dtype: str = "float32"
     huber_delta: float = 0.1
     compute_dtype: Any = torch.bfloat16
-    # "fused" and "auto" run the CUDA hash-encode kernel for CUDA tensors;
-    # "xla" and "sorted" (the reference's names) run the plain encode
+    # "fused" (and "auto" for CUDA tensors) runs the CUDA hash-encode kernels;
+    # "xla" and "sorted" (the reference's names) run the plain encode, under
+    # autograd or with the sort-based backward
     encode_impl: str = "auto"
     field_impl: str = "voxel"
     voxel_grid_size: int = 40
@@ -139,8 +141,17 @@ def init_params(
 
 
 def _encode(table, x, cfg: NerfConfig):
-    if cfg.encode_impl in ("auto", "fused"):
+    """Dispatch as the reference does: "fused" runs the kernels (forward
+    and table gradient), "sorted" the plain encode with the sort-based
+    backward, "xla" the plain encode under autograd; "auto" is "fused" for
+    CUDA tensors and "xla" on the CPU."""
+    impl = cfg.encode_impl
+    if impl == "auto":
+        impl = "fused" if x.device.type == "cuda" else "xla"
+    if impl == "fused":
         return encode_fused(table, x, cfg.grid)
+    if impl == "sorted":
+        return encode_sorted(table, x, cfg.grid)
     return encode(table, x, cfg.grid)
 
 

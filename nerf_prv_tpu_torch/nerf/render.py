@@ -6,16 +6,20 @@ Counterpart of ``nerf_prv_tpu/nerf/render.py``.  Deterministic renders
 occupancy tables (:class:`RenderAux`: a pooled block-max volume, then a
 corner-density table read through the row-gather kernel), the hash field
 the field MLP at ``render_coarse`` midpoints.  The training march (a
-``jitter`` tensor) draws stratified samples, tightened by a
-``train_coarse``-sample MLP probe that no gradient flows through.
-Importance resampling (``n_importance > 0``) and the periodically baked
-train probe (``train_probe_refresh > 0``) are not ported yet.
+``jitter`` tensor, or a ``torch.Generator`` to draw one from) draws
+stratified samples, tightened by a ``train_coarse``-sample probe that no
+gradient flows through: the field MLP, or with ``probe_raw`` a baked
+corner-density table read through the row-gather kernel.  With
+``n_importance > 0`` training resamples the fine positions from a
+density-only coarse pass (inverse CDF).
 
 Reference names map one to one, except that the reference's ``_jit_``
 prefixes are dropped (PyTorch runs eagerly): ``_assemble_tiles`` is
 ``_jit_assemble_tiles``, ``_render_tiles`` is ``_jit_render_tiles``.  The
-reference's speculative chunk bounds hide readback latency of a remote
-TPU; here every path reads its counts directly, so ``defer=True``
+reference's speculative, deferred dispatch of ``_render_tiles_two_phase``
+(chunk bounds guessed from the previous call, verified by one late
+readback) hides the readback latency of a remote TPU and has no
+counterpart here: every path reads its counts directly, so ``defer=True``
 returns a ``finish()`` that always returns None.
 """
 
@@ -158,15 +162,37 @@ def _coarse_density(params, pos, cfg):
     return density(params, pos.reshape(n * ns, 3), cfg).reshape(n, ns)
 
 
-def _tighten_interval(params, origins, dirs, tmin, tmax, valid, nc, cfg):
-    """Probe density at ``nc`` midpoints and return the tightened
-    (t_lo, t_hi, any_occ) of the occupied-and-visible interval."""
+def _chord_midpoints(origins, dirs, tmin, tmax, nc):
+    """(positions (N, nc, 3) of the ``nc`` segment midpoints of each ray's
+    [tmin, tmax], clipped into the volume; the chords' lengths (N,))."""
     base_c = (torch.arange(nc, dtype=torch.float32, device=tmin.device)[None, :] + 0.5) / nc
     span_c = tmax - tmin
     ts_c = tmin[:, None] + base_c * span_c[:, None]
     pos_c = origins[:, None, :] + dirs[:, None, :] * ts_c[..., None]
-    pos_c = torch.clamp(pos_c, 0.0, 1.0 - 1e-6)
+    return torch.clamp(pos_c, 0.0, 1.0 - 1e-6), span_c
+
+
+def _tighten_interval(params, origins, dirs, tmin, tmax, valid, nc, cfg):
+    """Probe density at ``nc`` midpoints and return the tightened
+    (t_lo, t_hi, any_occ) of the occupied-and-visible interval."""
+    pos_c, span_c = _chord_midpoints(origins, dirs, tmin, tmax, nc)
     sigma_c = _coarse_density(params, pos_c, cfg) * valid[:, None]
+    return _clamp_occupied(sigma_c, tmin, span_c, nc)
+
+
+def _tighten_interval_baked(cell_raw, origins, dirs, tmin, tmax, valid, nc, cfg):
+    """Train-time probe against a periodically rebaked corner-density table.
+
+    The clamp of ``_tighten_interval``, but sigma comes from trilinear
+    interpolation of the baked (g^3, 8) raw table (one 16-byte row gather
+    per probe sample, ``_cell_sigma_at``) instead of a field-MLP
+    evaluation.  The trainer rebakes the table every
+    ``cfg.train_probe_refresh`` steps, so it lags the live field by at most
+    that many steps; rays whose stale probes all read empty fall back to
+    the full chord (``render_rays``).
+    """
+    pos_c, span_c = _chord_midpoints(origins, dirs, tmin, tmax, nc)
+    sigma_c = _cell_sigma_at(cell_raw, pos_c, cfg.voxel_grid_size) * valid[:, None]
     return _clamp_occupied(sigma_c, tmin, span_c, nc)
 
 
@@ -246,21 +272,64 @@ def _tighten_interval_aux(aux: RenderAux, origins, dirs, tmin, tmax, valid, cfg)
     return tlo, thi, any1 & any2
 
 
-def render_rays(params, origins, dirs, cfg: NerfConfig, aux=None, jitter=None):
+def _sample_cdf(ts, weights, n_fine, u=None, generator=None):
+    """Inverse-CDF sampling of fine ts from coarse weights (jaxnerf-style).
+
+    ``ts`` (N, S) ascending coarse sample positions define S-1 bins; bin
+    mass is the mean of its endpoint weights.  ``u`` (N, n_fine) are the
+    uniforms; without them they are drawn from ``generator``, and without
+    either they are the ``n_fine`` bin midpoints (deterministic).  The
+    result is not sorted.
+    """
+    n, s = weights.shape
+    w = 0.5 * (weights[:, :-1] + weights[:, 1:]) + 1e-5  # (N, S-1)
+    cdf = torch.cumsum(w, dim=-1)
+    cdf = cdf / cdf[:, -1:]
+    cdf = torch.cat([cdf.new_zeros((n, 1)), cdf], dim=-1)  # (N, S)
+    if u is None and generator is not None:
+        u = torch.rand((n, n_fine), generator=generator, device=ts.device)
+    elif u is None:
+        mid = (torch.arange(n_fine, dtype=torch.float32, device=ts.device) + 0.5) / n_fine
+        u = mid.expand(n, n_fine)
+    # the reference's branchless search: count the cdf entries <= u
+    idx = torch.clamp(
+        torch.sum(cdf[:, None, :] <= u[:, :, None], dim=-1) - 1, 0, s - 2
+    )
+    c0 = torch.gather(cdf, 1, idx)
+    c1 = torch.gather(cdf, 1, idx + 1)
+    t0 = torch.gather(ts, 1, idx)
+    t1 = torch.gather(ts, 1, idx + 1)
+    frac = torch.clamp((u - c0) / torch.clamp_min(c1 - c0, 1e-8), 0.0, 1.0)
+    return t0 + (t1 - t0) * frac
+
+
+def render_rays(
+    params, origins, dirs, cfg: NerfConfig, aux=None, jitter=None,
+    probe_raw=None, generator=None, importance_u=None,
+):
     """March rays through the bounded volume; returns (rgb (N,3), alpha (N,)).
 
-    Without ``jitter`` this is the deterministic (eval) march: midpoint
-    samples inside the probe-tightened interval, through ``aux`` when one
-    is given.  A ``jitter`` (N, cfg.n_samples) tensor of uniforms, drawn
-    by the caller, selects the training march (the port has no ``key``).
+    Without ``jitter`` and ``generator`` this is the deterministic (eval)
+    march: midpoint samples inside the probe-tightened interval, through
+    ``aux`` when one is given.  A ``jitter`` (N, cfg.n_samples) tensor of
+    uniforms, or a ``generator`` to draw it from (the port has no ``key``),
+    selects the training march; ``probe_raw`` is the baked train probe's
+    table.  With ``cfg.n_importance > 0`` training runs a density-only
+    coarse pass and evaluates the field at importance-resampled points,
+    whose uniforms come from ``generator`` or ``importance_u``
+    (N, cfg.n_importance); a precomputed ``jitter`` without them raises
+    ValueError, as in the reference.  Deterministic renders always use the
+    flat ``cfg.render_n_samples`` march.
     """
-    training = jitter is not None
-    if training and cfg.n_importance > 0:
-        raise NotImplementedError("n_importance > 0 (importance resampling) is not ported yet")
-    if training and cfg.train_coarse > 0 and cfg.train_probe_refresh > 0:
-        raise NotImplementedError("train_probe_refresh > 0 (the baked train probe) is not ported yet")
+    training = jitter is not None or generator is not None
+    importance = training and cfg.n_importance > 0
+    if importance and jitter is not None and generator is None and importance_u is None:
+        raise ValueError("precomputed jitter requires cfg.n_importance == 0")
+    n = origins.shape[0]
     if training:
         ns = cfg.n_samples
+        if jitter is None:
+            jitter = torch.rand((n, ns), generator=generator, device=origins.device)
     else:
         ns = cfg.render_n_samples or cfg.n_samples
         if aux is None and cfg.render_n_samples == _RENDER_NS_DEFAULT:
@@ -284,17 +353,53 @@ def render_rays(params, origins, dirs, cfg: NerfConfig, aux=None, jitter=None):
     elif training and cfg.train_coarse > 0:
         # the same probe for training; no gradient flows through it.  Rays
         # whose occupied probes vanished fall back to the full chord so
-        # density can (re)grow anywhere
+        # density can (re)grow anywhere (with probe_raw, delayed by at most
+        # cfg.train_probe_refresh steps until the next bake)
         with torch.no_grad():
-            t_lo, t_hi, any_occ = _tighten_interval(
-                params, origins, dirs, tmin, tmax, valid, cfg.train_coarse, cfg
-            )
+            if probe_raw is not None:
+                t_lo, t_hi, any_occ = _tighten_interval_baked(
+                    probe_raw, origins, dirs, tmin, tmax, valid, cfg.train_coarse, cfg
+                )
+            else:
+                t_lo, t_hi, any_occ = _tighten_interval(
+                    params, origins, dirs, tmin, tmax, valid, cfg.train_coarse, cfg
+                )
             tmin = torch.where(any_occ, t_lo, tmin)
             tmax = torch.where(any_occ, t_hi, tmax)
 
+    if importance:
+        return _march_importance(
+            params, origins, dirs, tmin, tmax, valid, cfg, ns, jitter, importance_u, generator
+        )
     return _march_body(
         params, origins, dirs, tmin, tmax, valid, cfg, ns, 0.5 if jitter is None else jitter
     )
+
+
+def _march_importance(params, o, d, tmin, tmax, valid, cfg, ns, jitter, u, generator):
+    """Training march with importance resampling: a density-only pass at the
+    ``ns`` stratified positions gives coarse weights (no gradient flows
+    through it), ``cfg.n_importance`` positions are drawn from their CDF and
+    sorted, and the field is composited there with the gaps between
+    consecutive positions as deltas (the last one a coarse span)."""
+    n = o.shape[0]
+    span = (tmax - tmin) / ns
+    with torch.no_grad():
+        base = torch.arange(ns, dtype=torch.float32, device=tmin.device)[None, :]
+        ts = tmin[:, None] + (base + jitter) * span[:, None]
+        pos = torch.clamp(o[:, None, :] + d[:, None, :] * ts[..., None], 0.0, 1.0 - 1e-6)
+        sigma_c = _coarse_density(params, pos, cfg) * valid[:, None]
+        alpha_c = 1.0 - torch.exp(-sigma_c * span[:, None])
+        trans_c = torch.cumprod(1.0 - alpha_c + 1e-10, dim=-1)
+        trans_c = torch.cat([trans_c.new_ones((n, 1)), trans_c[:, :-1]], dim=-1)
+        t_fine = _sample_cdf(ts, trans_c * alpha_c, cfg.n_importance, u, generator)
+        t_fine = torch.sort(t_fine, dim=-1).values
+        pos_f = torch.clamp(o[:, None, :] + d[:, None, :] * t_fine[..., None], 0.0, 1.0 - 1e-6)
+        deltas = torch.diff(t_fine, dim=-1, append=t_fine[:, -1:] + span[:, None])
+    sigma, rgb = _eval_field(params, pos_f, d, cfg)
+    sigma = sigma * valid[:, None]
+    out_rgb, out_alpha, _ = _composite(sigma, rgb, deltas)
+    return out_rgb, out_alpha
 
 
 def _march_body(params, o, d, tlo, thi, occ, cfg, ns, jitter=0.5):
@@ -353,8 +458,6 @@ def render_views(
         aux = build_render_aux(params, cfg)
     if cfg.render_coarse <= 0:
         aux = None  # render_rays reads the aux only when it probes
-    if aux is not None and cfg.render_span_bucket:
-        raise NotImplementedError("render_span_bucket=True is not ported yet")
     device = next(iter(params.values())).device
     chunk = chunk or _default_chunk(cfg)
     origins = torch.as_tensor(origins, dtype=torch.float32, device=device)
@@ -514,9 +617,18 @@ def _render_tiles_two_phase(params, od_t, tidx, cfg, aux, chunk):
     occupied rays are compacted to the front; level 2 and the fine march
     run only on them, in chunks.  Per ray the result equals
     ``render_rays(aux=aux)``: a ray dropped at level 1 composites to exact
-    zeros either way.  (The reference's version of this function also
-    speculates its chunk counts to hide a remote device's readback; here
-    the count is read directly.)
+    zeros either way.
+
+    With ``cfg.render_span_bucket`` the level-2 probe runs on its own, its
+    survivors are compacted again and partitioned short spans first, and
+    whole chunks of short-span rays march with ``cfg.render_short_samples``
+    samples; the chunk that straddles the boundary and all later ones march
+    at the full count.
+
+    The reference's version of this function also guesses its chunk counts
+    from the previous call and verifies them with one late readback, which
+    hides a remote TPU's readback latency; that speculative, deferred
+    dispatch has no counterpart here, where each count is read directly.
     """
     n_act = tidx.shape[0]
     t = od_t.shape[1] // 6
@@ -529,9 +641,74 @@ def _render_tiles_two_phase(params, od_t, tidx, cfg, aux, chunk):
     order, pos, n1 = _partition(packed[:, 8] > 0.5)
     n1 = int(n1)
     pack1 = packed[order[:n1]]
-    outs = [_probe_march(params, pack1[i : i + chunk], cfg, aux) for i in range(0, n1, chunk)]
-    rgba_l1 = torch.cat(outs) if outs else packed.new_zeros((0, 4))
+    ns_long = cfg.render_n_samples or cfg.n_samples
+    if cfg.render_span_bucket and cfg.render_short_samples < ns_long:
+        rgba_l1 = _march_span_bucketed(params, pack1, cfg, aux, chunk, ns_long)
+    else:
+        outs = [_probe_march(params, pack1[i : i + chunk], cfg, aux) for i in range(0, n1, chunk)]
+        rgba_l1 = torch.cat(outs) if outs else packed.new_zeros((0, 4))
     return _unpermute_rays(rgba_l1, pos).reshape(n_act, 4 * t)
+
+
+def _march_span_bucketed(params, pack1, cfg, aux, chunk, ns_long):
+    """Level-2 probe, compaction, short-spans-first partition and the march
+    of level-1 survivors ``pack1`` -> (n1, 4) rgba in ``pack1``'s order."""
+    n1 = pack1.shape[0]
+    if n1 == 0:
+        return pack1.new_zeros((0, 4))
+    packed2 = torch.cat([_probe_l2(pack1[i : i + chunk], cfg, aux) for i in range(0, n1, chunk)])
+    order2, pos2, n2 = _partition(packed2[:, 8] > 0.5)
+    n2 = int(n2)
+    pack2 = packed2[order2[:n2]]
+    pos3, c0 = None, 0
+    if n2 > chunk:
+        pack2, pos3, n_short = _partition_short(pack2, cfg.render_short_samples, ns_long)
+        c0 = (int(n_short) // chunk) * chunk  # only whole chunks switch
+    outs = [
+        _march_interval(
+            params, pack2[i : i + chunk], cfg, cfg.render_short_samples if i < c0 else ns_long
+        )
+        for i in range(0, n2, chunk)
+    ]
+    rgba_occ = torch.cat(outs) if outs else pack1.new_zeros((0, 4))
+    if pos3 is not None:
+        rgba_occ = _unpermute_rays(rgba_occ, pos3)  # pack2's order
+    return _unpermute_rays(rgba_occ, pos2)
+
+
+def _partition_short(packed, ns_short, ns_long):
+    """Short-span-first stable partition of packed level-2 survivors.
+
+    A ray is "short" when marching its tightened span with ``ns_short``
+    samples keeps the sample spacing at or below the spacing the uniform
+    ``ns_long`` march gives the longest occupied span: span <= smax *
+    ns_short / ns_long.  Stable, so an occupied-first input stays
+    occupied-first.  Returns (packed rows in the new order, each input
+    row's slot, the number of short rays).
+    """
+    occ = packed[:, 8] > 0.5
+    spans = packed[:, 7] - packed[:, 6]
+    smax = torch.max(torch.where(occ, spans, 0.0))
+    short = occ & (spans <= smax * (ns_short / ns_long))
+    order, pos, n_short = _partition(short)
+    return packed[order], pos, n_short
+
+
+def _probe_l2(packed, cfg, aux):
+    """Level-2 corner-density probe on packed level-1 survivors; returns
+    packed rows with the tightened interval and the combined occupancy."""
+    o, d = packed[:, :3], packed[:, 3:6]
+    tlo, thi, any2 = _probe_level2(aux, o, d, packed[:, 6], packed[:, 7], cfg)
+    occ = (any2 & (packed[:, 8] > 0.5)).to(packed.dtype)
+    return torch.cat([packed[:, :6], tlo[:, None], thi[:, None], occ[:, None]], dim=-1)
+
+
+def _march_interval(params, packed, cfg, ns):
+    """Deterministic fine march of ``ns`` samples inside the packed rows'
+    precomputed [t_lo, t_hi] -> (N, 4) rgba."""
+    o, d = packed[:, :3], packed[:, 3:6]
+    rgb, a = _march_body(params, o, d, packed[:, 6], packed[:, 7], packed[:, 8] > 0.5, cfg, ns)
+    return torch.cat([rgb, a[:, None]], dim=-1)
 
 
 def _probe_tiles_l1(od_t, tidx, cfg, aux):

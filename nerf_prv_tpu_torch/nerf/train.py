@@ -10,12 +10,11 @@ What the reference has only to drive a TPU has no counterpart here: the
 ``lax.scan`` chunks and their ``chunk_steps``, ``cfg.train_scan_unroll``,
 the hoisted, packed or fused random streams that ``cfg.train_rng`` chooses
 between (all three values draw from the one ``torch.Generator``, in the
-order pool index, background, jitter), and the frame-bucket padding that
-spares recompiles (with it ``build_hit_pool``'s ``n_frames`` mask).  Not
-ported yet, and raising NotImplementedError:
-``adam_moment_dtype="bfloat16"``, ``field_impl="hash"`` training (the hash
-encode has no backward yet), ``n_importance > 0`` and
-``train_probe_refresh > 0``.
+order pool index, background, jitter, then the importance uniforms where
+``n_importance > 0``), and the frame-bucket padding that spares recompiles
+(with it ``build_hit_pool``'s ``n_frames`` mask).  The baked train probe
+(``train_probe_refresh > 0``) is rebaked on the step count of its phase,
+where the reference counts within each scan chunk.
 """
 
 from __future__ import annotations
@@ -29,27 +28,73 @@ import torch
 from .model import NerfConfig, init_params
 from .rays import RayDataset, pixel_dirs_cam, ray_sphere, rays_from_pixels
 from .render import render_rays
+from .voxelfield import lattice_corner_raw
 
 
-def make_optimizer(params: Dict[str, torch.Tensor], cfg: NerfConfig) -> torch.optim.Adam:
+class AdamLowp(torch.optim.Optimizer):
+    """Adam with both moments stored in ``moment_dtype`` (bfloat16) and
+    computed in float32 (≙ ``_scale_by_adam_lowp``).
+
+    The update is memory-bound, several passes over parameters and moments
+    per step, and halving the moments' bytes removes about a third of that
+    traffic.  bf16's 8-bit mantissa puts ~0.4% relative error on the stored
+    moments.  ``weight_decay`` is coupled (added to the gradient before the
+    moments), as in ``torch.optim.Adam``.  The step count lives on the
+    host, so a step reads nothing back from the device.
+    """
+
+    def __init__(self, params, lr, betas=(0.9, 0.99), eps=1e-15, weight_decay=0.0,
+                 moment_dtype=torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.moment_dtype = moment_dtype
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["mu"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                    state["nu"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                state["step"] += 1
+                # the bias corrections in float32, as the reference takes them
+                cf = np.float32(state["step"])
+                bc1 = float(np.float32(1.0) - np.float32(b1) ** cf)
+                bc2 = float(np.float32(1.0) - np.float32(b2) ** cf)
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g.add(p, alpha=group["weight_decay"])
+                mu32 = state["mu"].to(torch.float32).mul_(b1).add_(g, alpha=1.0 - b1)
+                nu32 = state["nu"].to(torch.float32).mul_(b2).addcmul_(g, g, value=1.0 - b2)
+                state["mu"].copy_(mu32)
+                state["nu"].copy_(nu32)
+                denom = nu32.div_(bc2).sqrt_().add_(group["eps"])
+                p.addcdiv_(mu32.div_(bc1), denom, value=-group["lr"])
+
+
+def make_optimizer(params: Dict[str, torch.Tensor], cfg: NerfConfig) -> torch.optim.Optimizer:
     """Adam over ``params`` with L2 decay on the MLP weights only.
 
     ``torch.optim.Adam``'s ``weight_decay`` adds ``wd * p`` to the gradient
     before the moments, which is what the reference's
     ``add_decayed_weights`` then ``scale_by_adam`` chain does (it is not
-    AdamW).  ``grid`` and ``table`` are not decayed.
+    AdamW).  ``grid`` and ``table`` are not decayed.  With
+    ``cfg.adam_moment_dtype="bfloat16"`` the moments are stored in bf16
+    (:class:`AdamLowp`).
     """
-    if cfg.adam_moment_dtype != "float32":
-        raise NotImplementedError("adam_moment_dtype='bfloat16' is not ported yet")
     sparse = [v for k, v in params.items() if k in ("table", "grid")]
     dense = [v for k, v in params.items() if k not in ("table", "grid")]
-    return torch.optim.Adam(
-        [
-            {"params": dense, "weight_decay": cfg.weight_decay},
-            {"params": sparse, "weight_decay": 0.0},
-        ],
-        lr=cfg.lr, betas=(0.9, 0.99), eps=1e-15,
-    )
+    groups = [
+        {"params": dense, "weight_decay": cfg.weight_decay},
+        {"params": sparse, "weight_decay": 0.0},
+    ]
+    if cfg.adam_moment_dtype == "bfloat16":
+        return AdamLowp(groups, lr=cfg.lr, betas=(0.9, 0.99), eps=1e-15)
+    return torch.optim.Adam(groups, lr=cfg.lr, betas=(0.9, 0.99), eps=1e-15)
 
 
 @torch.no_grad()
@@ -132,22 +177,43 @@ def _huber_mean(err, cfg: NerfConfig):
     return torch.mean(huber)
 
 
-def batch_loss(params, batch, jitter, cfg: NerfConfig):
+def batch_loss(params, batch, jitter, cfg: NerfConfig, probe_raw=None, generator=None):
     """Huber loss of one ray batch ``(origins, dirs, target, bg)`` marched
-    with the stratified ``jitter`` (N, cfg.n_samples)."""
+    with the stratified ``jitter`` (N, cfg.n_samples), or with uniforms
+    drawn from ``generator`` (which ``cfg.n_importance > 0`` needs for its
+    resampling); ``probe_raw`` is the baked train probe's table."""
     o, d, target, bg = batch
-    rgb, acc = render_rays(params, o, d, cfg, jitter=jitter)
+    rgb, acc = render_rays(
+        params, o, d, cfg, jitter=jitter, probe_raw=probe_raw, generator=generator
+    )
     return _huber_mean(rgb + bg * (1.0 - acc[:, None]) - target, cfg)
 
 
-def train_step(params, opt, batch, jitter, cfg: NerfConfig):
+def train_step(params, opt, batch, jitter, cfg: NerfConfig, probe_raw=None, generator=None):
     """One optimizer step on one batch, in place; returns the loss as a
     0-d tensor still on the device."""
     opt.zero_grad(set_to_none=True)
-    loss = batch_loss(params, batch, jitter, cfg)
+    loss = batch_loss(params, batch, jitter, cfg, probe_raw=probe_raw, generator=generator)
     loss.backward()
     opt.step()
     return loss.detach()
+
+
+def uses_baked_probe(cfg: NerfConfig) -> bool:
+    """Whether training at ``cfg`` probes a baked corner-density table
+    (rebaked every ``cfg.train_probe_refresh`` steps) instead of the field."""
+    return (
+        cfg.train_coarse > 0
+        and cfg.train_probe_refresh > 0
+        and cfg.field_impl == "voxel"
+        and cfg.bound == "sphere"
+    )
+
+
+@torch.no_grad()
+def bake_train_probe(params, cfg: NerfConfig) -> torch.Tensor:
+    """(g^3, 8) bfloat16 raw corner densities of the live grid."""
+    return lattice_corner_raw(params, cfg).to(torch.bfloat16)
 
 
 def _phases(cfg: NerfConfig, warm_start: bool):
@@ -182,8 +248,6 @@ def train(
     skipped since geometry already exists.
     """
     cfg = cfg or NerfConfig()
-    if cfg.field_impl == "hash":
-        raise NotImplementedError("field_impl='hash' training is not ported yet")
     device = torch.device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     if init_from is not None:
@@ -206,13 +270,22 @@ def train(
     losses = []
     for phase_cfg, phase_steps in _phases(cfg, warm_start=init_from is not None):
         n_rays = phase_cfg.train_rays
-        for _ in range(phase_steps):
+        baked = uses_baked_probe(phase_cfg)
+        probe_raw = None
+        for i in range(phase_steps):
+            if baked and i % phase_cfg.train_probe_refresh == 0:
+                probe_raw = bake_train_probe(params, phase_cfg)
             if pool is not None:
                 batch = _sample_batch_pooled(generator, pixels_u8, rot, org, camera, n_rays, pool, n_hit)
             else:
                 batch = _sample_batch(generator, pixels_u8, rot, org, camera, n_rays)
-            jitter = torch.rand((n_rays, phase_cfg.n_samples), generator=generator, device=device)
-            losses.append(train_step(params, opt, batch, jitter, phase_cfg))
+            if phase_cfg.n_importance > 0:
+                # the march draws its jitter and its resampling uniforms itself
+                loss = train_step(params, opt, batch, None, phase_cfg, probe_raw, generator)
+            else:
+                jitter = torch.rand((n_rays, phase_cfg.n_samples), generator=generator, device=device)
+                loss = train_step(params, opt, batch, jitter, phase_cfg, probe_raw)
+            losses.append(loss)
     all_losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
     if all_losses.size and not np.isfinite(all_losses[-min(100, all_losses.size):]).all():
         print(

@@ -13,9 +13,11 @@ import pytest
 import torch
 
 from nerf_prv_tpu_torch.nerf.hashgrid import HashGridConfig, encode
-from nerf_prv_tpu_torch.ops.hash_encode import hash_encode
+from nerf_prv_tpu_torch.ops.fused import encode_fused
+from nerf_prv_tpu_torch.ops.hash_encode import hash_encode, hash_encode_backward
 from nerf_prv_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from nerf_prv_tpu_torch.ops.row_scatter_add import row_scatter_add, row_scatter_add_plain
+from nerf_prv_tpu_torch.ops.sorted_grad import _levelwise_indices_weights, table_grad_sorted
 
 TOL = 1e-5  # f32 trilinear blend of table values in [-1, 1]; FMA vs mul+add
 
@@ -179,3 +181,119 @@ def test_voxel_gradient_through_kernels_matches_plain(cuda_device):
     for k in p:
         scale = float(grads[1][k].abs().max())
         assert scale > 0 and float((grads[0][k] - grads[1][k]).abs().max()) <= 2e-3 * scale, k  # card vs CPU: other exp, sin and matmul rounding; measured 3.1e-4
+
+
+# --- the hash encode's table gradient ---------------------------------------
+
+
+def _table_grad_f64(x, g, cfg):
+    """(float64 sum, per-element f32 summation bound k * 2^-24 * sum|w g|)
+    of the table gradient: a row that receives k updates is k rounded adds,
+    each off by at most 2^-24 of a partial sum that never exceeds the row's
+    sum of |updates|, in whatever order the atomics ran; one more rounding
+    (the product w * g) is covered by the same term."""
+    n, f = x.shape[0], cfg.features
+    rows = cfg.levels * cfg.table_size
+    idx, w = _levelwise_indices_weights(x, cfg)
+    upd = (w[..., None].double() * g.reshape(n, cfg.levels, f).permute(1, 0, 2)[:, :, None, :].double()).reshape(-1, f)
+    idx = idx.reshape(-1)
+    want = torch.zeros((rows, f), dtype=torch.float64, device=x.device).index_add_(0, idx, upd)
+    mag = torch.zeros_like(want).index_add_(0, idx, upd.abs())
+    count = torch.bincount(idx, minlength=rows).double()[:, None]
+    return want, (count + 1) * 2.0 ** -24 * mag
+
+
+@pytest.mark.parametrize("points", ["uniform", "ray_ordered", "one_cell"])
+@pytest.mark.parametrize("n", [1, 255, 20_011])
+@pytest.mark.parametrize("log2_table", [12, 19])
+@pytest.mark.parametrize("levels", [1, 5, 16])
+@pytest.mark.parametrize("features", [1, 2, 4, 8])
+def test_hash_encode_backward_kernel_matches_float64_sum(cuda_device, features, levels, log2_table, n, points):
+    """Every feature width, whole and incomplete level groups, rows of g that
+    are and are not whole 16-byte vectors, dense and hashed levels, N not a
+    multiple of the block, and duplicate-heavy points (all in one cell of
+    the finest level: every update of a level lands on 8 rows), against a
+    float64 sum within the f32 summation bound computed from the data, and
+    against the plain sort-based version within that version's own cumsum
+    error."""
+    cfg = HashGridConfig(levels=levels, features=features, log2_table=log2_table)
+    if points == "one_cell":
+        rng = np.random.default_rng(n)
+        x = torch.from_numpy((0.3 + rng.uniform(0, 1e-4, size=(n, 3))).astype(np.float32)).to(cuda_device)
+    else:
+        x = _points(n, points, seed=levels, dev=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(features * 100 + levels)
+    g = torch.randn((n, cfg.out_dim), generator=gen, device=cuda_device)
+    before = hash_encode_backward.launches
+    got = hash_encode_backward(x, g, cfg)
+    torch.cuda.synchronize()
+    assert hash_encode_backward.launches == before + 1
+    assert got.shape == (levels * cfg.table_size, features) and got.dtype == torch.float32
+    want, tol = _table_grad_f64(x, g, cfg)
+    err = (got.double() - want).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
+    assert float(got.abs().max()) > 0
+    # the plain version takes each run's total as a difference of two
+    # entries of one f32 cumsum over all M updates, so it is the looser of
+    # the two: off by up to 1.3e-4 of the largest entry at M = 2.6 M on an
+    # NVIDIA H100 80GB HBM3; the check holds it to 1e-3
+    plain = table_grad_sorted(x, g, cfg)
+    assert float((got - plain).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_hash_encode_backward_kernel_empty_input_zeroes_and_launches_nothing(cuda_device):
+    cfg = HashGridConfig(levels=2, log2_table=8, n_min=4, n_max=16)
+    before = hash_encode_backward.launches
+    out = hash_encode_backward(torch.zeros((0, 3), device=cuda_device), torch.zeros((0, 4), device=cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert out.shape == (512, 2) and float(out.abs().max()) == 0.0
+    assert hash_encode_backward.launches == before
+
+
+def test_hash_encode_backward_kernel_rejects_what_it_does_not_take(cuda_device):
+    cfg = HashGridConfig(levels=2, log2_table=8, n_min=4, n_max=16)
+    x = torch.rand((64, 3), device=cuda_device)
+    g = torch.rand((64, 4), device=cuda_device)
+    before = hash_encode_backward.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        hash_encode_backward(x, g.t().contiguous().t(), cfg)
+    with pytest.raises(ValueError, match="g must be"):
+        hash_encode_backward(x, g[:, :2].contiguous(), cfg)
+    with pytest.raises(ValueError, match="float32"):
+        hash_encode_backward(x, g.double(), cfg)
+    shifted = torch.zeros(g.numel() + 2, device=cuda_device)[2:].view(g.shape)  # 8 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        hash_encode_backward(x, shifted, cfg)
+    with pytest.raises(ValueError, match="x on"):
+        hash_encode_backward(x.cpu(), g, cfg)
+    assert hash_encode_backward.launches == before
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [HashGridConfig(levels=4, log2_table=12, n_min=4, n_max=64), HashGridConfig(), HashGridConfig(features=4, levels=6)],
+    ids=["small", "default", "f4"],
+)
+def test_encode_fused_backward_agrees_with_autograd_through_plain_encode(cuda_device, cfg):
+    """The table gradient of ``encode_fused`` (K1 forward, atomic table
+    gradient backward) against autograd through ``hashgrid.encode`` for the
+    same table, points and cotangent; x gets no gradient.  Tolerance: both
+    sum f32 updates in orders of their own (a few hundred per row at most),
+    measured 1e-6 of the largest entry; 2e-5 leaves room."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    table = (torch.rand((cfg.levels * cfg.table_size, cfg.features), generator=gen, device=cuda_device) * 2 - 1)
+    x = _points(3001, "ray_ordered", seed=3, dev=cuda_device).requires_grad_(True)
+    ct = torch.randn((3001, cfg.out_dim), generator=gen, device=cuda_device)
+    grads = []
+    for fn in (encode_fused, encode):
+        t = table.clone().requires_grad_(True)
+        k1, k1b = hash_encode.launches, hash_encode_backward.launches
+        (fn(t, x, cfg) * ct).sum().backward()
+        torch.cuda.synchronize()
+        launched = (hash_encode.launches - k1, hash_encode_backward.launches - k1b)
+        assert launched == ((1, 1) if fn is encode_fused else (0, 0))
+        grads.append(t.grad)
+        if fn is encode_fused:
+            assert x.grad is None
+    scale = float(grads[1].abs().max())
+    assert scale > 0 and float((grads[0] - grads[1]).abs().max()) <= 2e-5 * scale

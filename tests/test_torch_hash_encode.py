@@ -17,6 +17,10 @@ from nerf_prv_tpu_torch.nerf import hashgrid as thg
 from nerf_prv_tpu_torch.ops import encode_fused, hash_encode
 from nerf_prv_tpu_torch.ops.hash_encode import _level_arrays, level_plan
 
+# one thread for PyTorch: the tests' tensors are tiny, and several test workers on
+# a few cores otherwise spend their time contending for them (minutes, not seconds)
+torch.set_num_threads(1)
+
 TOL = 1e-5  # f32 trilinear blend of table values in [-1, 1]
 
 # the small configs of tests/test_ops.py (dense + hashed levels), with
@@ -121,13 +125,25 @@ def test_wrapper_empty_input():
     assert out.shape == (0, CFG.out_dim)
 
 
-def test_encode_fused_is_forward_only():
-    table = torch.zeros(512, 2, requires_grad=True)
-    x = torch.rand(8, 3)
-    with pytest.raises(NotImplementedError):
-        encode_fused(table, x, CFG)
+def test_encode_fused_has_a_table_gradient_and_none_for_positions():
+    """Forward equal to the plain encode; the table's gradient equal to
+    autograd's through the plain encode (8 points, one f32 sum order apart:
+    1e-6); positions get none."""
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.uniform(-1, 1, size=(512, 2)).astype(np.float32))
+    x = torch.rand(8, 3, generator=torch.Generator().manual_seed(0))
+    grads = []
+    for fn in (encode_fused, thg.encode):
+        t = table.clone().requires_grad_(True)
+        xg = x.clone().requires_grad_(True)
+        out = fn(t, xg, CFG)
+        assert out.shape == (8, 4) and out.requires_grad
+        (out * out).sum().backward()
+        grads.append((t.grad, xg.grad))
+    np.testing.assert_allclose(grads[0][0].numpy(), grads[1][0].numpy(), rtol=0, atol=1e-6)
+    assert grads[0][1] is None and grads[1][1] is not None
     with torch.no_grad():
-        assert encode_fused(table, x, CFG).shape == (8, 4)
+        assert torch.equal(encode_fused(table, x, CFG), thg.encode(table, x, CFG))
 
 
 # ---- the arithmetic the kernel's lane pairs lean on: the even lane of a pair

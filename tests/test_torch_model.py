@@ -14,6 +14,10 @@ from nerf_prv_tpu_torch.convert import params_from_numpy, params_to_numpy
 from nerf_prv_tpu_torch.nerf import hashgrid as thg
 from nerf_prv_tpu_torch.nerf import model as tm
 
+# one thread for PyTorch: the tests' tensors are tiny, and several test workers on
+# a few cores otherwise spend their time contending for them (minutes, not seconds)
+torch.set_num_threads(1)
+
 GRID = dict(levels=4, features=2, log2_table=12, n_min=4, n_max=64)
 F32_TOL = 1e-5
 # bf16 rounds each matmul output to 8 mantissa bits; the two frameworks'
@@ -75,8 +79,9 @@ def test_nerf_config_checks_match_jax(bad):
 
 
 def test_voxel_field_not_ported_yet():
-    """The default config dispatches every entry to the voxel field; what
-    is not ported yet (training the hash field) still raises."""
+    """The default config dispatches every entry to the voxel field (the
+    name dates from when it was not ported), and the hash field's encode
+    dispatches on ``encode_impl`` as the reference does."""
     cfg = tm.NerfConfig(voxel_grid_size=6)
     p = tm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert p["grid"].shape == (6 ** 3, 64) and "table" not in p
@@ -84,9 +89,17 @@ def test_voxel_field_not_ported_yet():
     assert sigma.shape == (5,) and rgb.shape == (5, 3)
     assert torch.equal(tm.density(p, torch.full((2, 3), 0.5), cfg), tm.density(p, torch.full((2, 3), 0.5), cfg))
     assert not hasattr(tm, "_voxel_not_ported")
-    table = torch.zeros((4 * 4096, 2), requires_grad=True)
-    with pytest.raises(NotImplementedError):  # hash training waits for the encode's backward
-        tm._encode(table, torch.rand(3, 3), tm.NerfConfig(grid=thg.HashGridConfig(**GRID), field_impl="hash"))
+    table = torch.rand((4 * 4096, 2), requires_grad=True)
+    x = torch.rand(3, 3)
+    outs = {}
+    for impl in ("auto", "fused", "sorted", "xla"):
+        hcfg = tm.NerfConfig(grid=thg.HashGridConfig(**GRID), field_impl="hash", encode_impl=impl)
+        outs[impl] = tm._encode(table, x, hcfg)
+        assert outs[impl].requires_grad and torch.equal(outs[impl], outs["auto"])
+    # "auto" on the CPU is the plain encode under autograd, like "xla"
+    assert type(outs["auto"].grad_fn).__name__ == type(outs["xla"].grad_fn).__name__
+    assert "EncodeFused" in type(outs["fused"].grad_fn).__name__
+    assert "EncodeSorted" in type(outs["sorted"].grad_fn).__name__
 
 
 def test_init_params_shapes_match_jax():

@@ -24,6 +24,10 @@ from nerf_prv_tpu_torch.nerf import rays as tr
 from nerf_prv_tpu_torch.nerf import render as trd
 from synthetic import write_scene
 
+# one thread for PyTorch: the tests' tensors are tiny, and several test workers on
+# a few cores otherwise spend their time contending for them (minutes, not seconds)
+torch.set_num_threads(1)
+
 GRID = dict(levels=4, features=2, log2_table=12, n_min=4, n_max=64)
 # f32 end to end; the two sides sum the composite and the matmuls in other
 # orders: renders measured within 3.5e-5 of each other (the wide frame's
@@ -288,22 +292,158 @@ def test_tile_path_equals_render_rays_per_ray():
     assert torch.equal(frame[:, :3], rgb) and torch.equal(frame[:, 3], a)
 
 
-@pytest.mark.parametrize(
-    "kw,call",
-    [
-        (dict(render_span_bucket=True), "views"),
-        (dict(n_importance=4), "rays"),
-        (dict(train_probe_refresh=5), "rays"),
-    ],
-    ids=["span_bucket", "importance", "baked_probe"],
-)
-def test_unported_render_options_raise(kw, call):
-    _, tcfg, _, tp = _voxel(**kw)
-    o, d = vrays(32)
-    with pytest.raises(NotImplementedError, match=next(iter(kw))):
-        if call == "views":
-            org, rot = _views(1, seed=1)
-            cam = TCam(width=640, height=4, fx=100.0, fy=100.0, ppx=320.0, ppy=2.0, model=0)
-            trd.render_views(tp, org, rot, cam, tcfg)
-        else:
-            trd.render_rays(tp, torch.from_numpy(o), torch.from_numpy(d), tcfg, jitter=torch.rand(32, 16))
+# --- importance resampling, the baked train probe, the span bucket ----------
+
+
+def _cdf_inputs(n=64, s=16, seed=7):
+    rng = np.random.default_rng(seed)
+    ts = np.sort(rng.uniform(2.0, 4.0, size=(n, s)).astype(np.float32), axis=1)
+    w = rng.uniform(0, 1, size=(n, s)).astype(np.float32) ** 4
+    w[:4] = 0.0  # rays without any mass: the 1e-5 floor makes the cdf uniform
+    u = rng.uniform(size=(n, 8)).astype(np.float32)
+    u[4, :3] = [0.0, 1.0 - 2.0 ** -24, 0.5]
+    return ts, w, u
+
+
+def test_sample_cdf_matches_with_given_and_deterministic_uniforms(monkeypatch):
+    """Given the same uniforms (handed to the reference in place of
+    ``jax.random.uniform``) and with the deterministic bin midpoints.
+    Tolerance 2e-6 on positions in [2, 4]: a cumsum and a division in f32;
+    measured 4.8e-7."""
+    ts, w, u = _cdf_inputs()
+    monkeypatch.setattr(jax.random, "uniform", lambda key, shape: jnp.asarray(u))
+    want = np.asarray(jrd._sample_cdf(jnp.asarray(ts), jnp.asarray(w), 8, jax.random.PRNGKey(0)))
+    monkeypatch.undo()
+    got = trd._sample_cdf(torch.from_numpy(ts), torch.from_numpy(w), 8, u=torch.from_numpy(u))
+    assert got.shape == (64, 8)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)
+    assert (got.numpy() >= ts[:, :1] - 1e-6).all() and (got.numpy() <= ts[:, -1:] + 1e-6).all()
+    want_det = np.asarray(jrd._sample_cdf(jnp.asarray(ts), jnp.asarray(w), 5, None))
+    got_det = trd._sample_cdf(torch.from_numpy(ts), torch.from_numpy(w), 5)
+    np.testing.assert_allclose(got_det.numpy(), want_det, rtol=0, atol=2e-6)
+    # a generator draws the uniforms: reproducible, inside the bins, not the midpoints
+    a = trd._sample_cdf(torch.from_numpy(ts), torch.from_numpy(w), 5, generator=torch.Generator().manual_seed(1))
+    b = trd._sample_cdf(torch.from_numpy(ts), torch.from_numpy(w), 5, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(a, b) and not torch.equal(a, got_det)
+
+
+def _jax_training_uniforms(key, n, ns, n_fine):
+    """The jitter and the importance uniforms ``render_rays(key=key)`` draws."""
+    key, kj = jax.random.split(key)
+    jitter = jax.random.uniform(kj, (n, ns))
+    _, kf = jax.random.split(key)
+    return np.asarray(jitter), np.asarray(jax.random.uniform(kf, (n, n_fine)))
+
+
+@pytest.mark.parametrize("field_impl,train_coarse", [("voxel", 12), ("voxel", 0), ("hash", 12)])
+def test_render_rays_with_importance_matches(field_impl, train_coarse):
+    """The training march with ``n_importance=8`` given the uniforms the
+    reference draws from its key: coarse density pass, inverse-CDF
+    resampling, sorted fine positions, ``diff`` deltas.  Tolerance: the
+    eval renders' (f32 composites and matmuls in other orders)."""
+    kw = dict(n_importance=8, train_coarse=train_coarse)
+    if field_impl == "voxel":
+        jcfg, tcfg, jp, tp = _voxel(**kw)
+        o, d = vrays(256, seed=8)
+    else:
+        jcfg, tcfg = _cfgs(**kw)
+        jp, tp = _params(jcfg)
+        o, d = _rays(256, seed=8)
+    key = jax.random.PRNGKey(3)
+    jitter, u = _jax_training_uniforms(key, 256, jcfg.n_samples, 8)
+    rgb_j, a_j = jrd.render_rays(jp, jnp.asarray(o), jnp.asarray(d), jcfg, key=key)
+    rgb_t, a_t = trd.render_rays(
+        tp, torch.from_numpy(o), torch.from_numpy(d), tcfg,
+        jitter=torch.from_numpy(jitter), importance_u=torch.from_numpy(u),
+    )
+    assert float(a_t.max()) > 0.5 and float(a_t[:16].max()) == 0.0
+    np.testing.assert_allclose(rgb_t.numpy(), np.asarray(rgb_j), rtol=0, atol=RENDER_TOL)
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), rtol=0, atol=RENDER_TOL)
+    # and it differs from the flat march with the same jitter
+    flat = trd.render_rays(tp, torch.from_numpy(o), torch.from_numpy(d),
+                           dataclasses.replace(tcfg, n_importance=0), jitter=torch.from_numpy(jitter))
+    assert float((flat[1] - a_t).abs().max()) > 1e-3
+
+
+def test_importance_needs_uniforms_and_takes_a_generator():
+    """A precomputed jitter without a source of importance uniforms raises
+    on both sides; a generator draws jitter and uniforms, reproducibly, and
+    gradients flow to the parameters but not through the coarse pass."""
+    jcfg, tcfg, jp, tp = _voxel(n_importance=4)
+    o, d = vrays(64, seed=9)
+    jitter = np.random.default_rng(0).uniform(size=(64, 16)).astype(np.float32)
+    with pytest.raises(ValueError, match="n_importance"):
+        jrd.render_rays(jp, jnp.asarray(o), jnp.asarray(d), jcfg, jitter=jnp.asarray(jitter))
+    with pytest.raises(ValueError, match="n_importance"):
+        trd.render_rays(tp, torch.from_numpy(o), torch.from_numpy(d), tcfg, jitter=torch.from_numpy(jitter))
+    for v in tp.values():
+        v.requires_grad_(True)
+    args = (tp, torch.from_numpy(o), torch.from_numpy(d), tcfg)
+    a = trd.render_rays(*args, generator=torch.Generator().manual_seed(2))
+    b = trd.render_rays(*args, generator=torch.Generator().manual_seed(2))
+    c = trd.render_rays(*args, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(a[0], b[0]) and not torch.equal(a[0], c[0])
+    a[0].sum().backward()
+    assert all(v.grad is not None and bool(torch.isfinite(v.grad).all()) for v in tp.values())
+    assert float(tp["grid"].grad.abs().max()) > 0
+
+
+def test_tighten_interval_baked_matches():
+    """The baked train probe on one bf16 table (made by JAX, handed to
+    both): the same occupancy flags, intervals within 1e-6."""
+    jcfg, tcfg, jp, tp = _voxel(train_probe_refresh=10)
+    praw_j = jrd.build_render_aux(jp, jcfg).cell_raw
+    praw_t = torch.from_numpy(np.array(praw_j.astype(jnp.float32))).to(torch.bfloat16)
+    o, d = vrays(512, seed=10)
+    jo, jd, to, td = jnp.asarray(o), jnp.asarray(d), torch.from_numpy(o), torch.from_numpy(d)
+    want = jrd._tighten_interval_baked(praw_j, jo, jd, *jr.ray_sphere(jo, jd), jcfg.train_coarse, jcfg)
+    got = trd._tighten_interval_baked(praw_t, to, td, *t_ray_sphere(to, td), tcfg.train_coarse, tcfg)
+    assert 0 < int(got[2].sum()) < 512
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    for a, b in zip(want[:2], got[:2]):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-6)
+    # through render_rays: the training march probes the table, not the field
+    jitter = np.random.default_rng(1).uniform(size=(512, 16)).astype(np.float32)
+    rgb_j, a_j = jrd.render_rays(jp, jo, jd, jcfg, jitter=jnp.asarray(jitter), probe_raw=praw_j)
+    rgb_t, a_t = trd.render_rays(tp, to, td, tcfg, jitter=torch.from_numpy(jitter), probe_raw=praw_t)
+    np.testing.assert_allclose(rgb_t.numpy(), np.asarray(rgb_j), rtol=0, atol=RENDER_TOL)
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), rtol=0, atol=RENDER_TOL)
+
+
+def test_span_bucket_partition_and_render():
+    """``_partition_short`` moves short-span occupied rays first (stable,
+    occupied rays stay ahead of non-occupied) exactly as the reference's
+    ``_jit_partition_short``, and the span-bucketed ``render_views`` gives
+    the reference's frame at the same chunk size."""
+    tlo = np.zeros(8, np.float32)
+    thi = np.asarray([0.1, 0.8, 0.3, 0.6, 0.7, 0.4, 0.5, 0.2], np.float32)
+    occ = np.asarray([1, 1, 1, 1, 1, 1, 1, 0], np.float32)
+    rays_np = np.arange(8 * 6, dtype=np.float32).reshape(8, 6)
+    packed = np.concatenate([rays_np, tlo[:, None], thi[:, None], occ[:, None]], axis=-1)
+    out_j, pos_j, n_j = jrd._jit_partition_short(jnp.asarray(packed), 12, 24)
+    out_t, pos_t, n_t = trd._partition_short(torch.from_numpy(packed), 12, 24)
+    assert int(n_t) == int(n_j) == 3  # short = occupied & span <= 0.4: rows 0, 2, 5
+    np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
+    np.testing.assert_array_equal(pos_t.numpy(), np.asarray(pos_j))
+    np.testing.assert_allclose(out_t[:3, 7].numpy(), [0.1, 0.3, 0.4])
+    assert bool((out_t[:7, 8] > 0.5).all()) and not bool(out_t[7, 8] > 0.5)
+
+    # 655 of the 1,772 level-2 survivors are short here: five whole
+    # 128-ray chunks march at 12 samples, the rest at 16
+    jcfg, tcfg, jp, tp = _voxel(render_span_bucket=True, render_short_samples=12)
+    w, h, chunk = 640, 12, 128
+    kw = dict(width=w, height=h, fx=w / 6.4, fy=w / 6.4, ppx=w / 2, ppy=h / 2, model=0)
+    org, rot = _views(2, seed=2)
+    jrd._SPEC_COUNTS.clear()  # the reference's first call per shape is exact
+    want = np.asarray(jrd.render_views(jp, jnp.asarray(org), jnp.asarray(rot), JCam(**kw), jcfg, chunk=chunk))
+    got = trd.render_views(tp, org, rot, TCam(**kw), tcfg, chunk=chunk)
+    assert got.shape == (2, h, w, 4) and float(got[..., 3].max()) > 0.5
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=RENDER_TOL)
+    plain = trd.render_views(tp, org, rot, TCam(**kw), dataclasses.replace(tcfg, render_span_bucket=False), chunk=chunk)
+    diff = float((plain - got).abs().max())
+    assert 1e-3 < diff  # some whole chunks marched at the short count
+    psnr = -10.0 * np.log10(float(((plain - got) ** 2).mean()))
+    assert psnr > 25.0, psnr  # and stayed close to the uniform march
+    # a short count that is not shorter switches nothing
+    same = trd.render_views(tp, org, rot, TCam(**kw), dataclasses.replace(tcfg, render_short_samples=16), chunk=chunk)
+    assert torch.equal(same, plain)

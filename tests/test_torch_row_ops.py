@@ -13,6 +13,10 @@ from nerf_prv_tpu_torch.nerf import voxelfield as tvf
 from nerf_prv_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from nerf_prv_tpu_torch.ops.row_scatter_add import row_scatter_add, row_scatter_add_plain
 
+# one thread for PyTorch: the tests' tensors are tiny, and several test workers on
+# a few cores otherwise spend their time contending for them (minutes, not seconds)
+torch.set_num_threads(1)
+
 R, W = 1000, 64
 # a row receives at most a few dozen f32 updates of magnitude <= 1 here;
 # numpy's add.at and index_add_ sum them in other orders

@@ -21,6 +21,10 @@ from nerf_prv_tpu_torch.nerf import train as ttr
 from synthetic import write_scene
 from voxel_common import both, cfgs, np_params, rays
 
+# one thread for PyTorch: the tests' tensors are tiny, and several test workers on
+# a few cores otherwise spend their time contending for them (minutes, not seconds)
+torch.set_num_threads(1)
+
 # the JAX package's nerf/__init__ exports the function `train` under the module's name
 jtr = importlib.import_module("nerf_prv_tpu.nerf.train")
 
@@ -281,20 +285,3 @@ def test_train_learns_and_warm_start_skips_warmup(scene, bound):
     assert losses3.shape == (5,) and losses3.mean() < losses[:5].mean()
     assert all(torch.equal(before[k], params[k]) for k in params)  # trained on a copy
     assert not torch.equal(warm["grid"], params["grid"])
-
-
-@pytest.mark.parametrize(
-    "kw,match",
-    [
-        (dict(adam_moment_dtype="bfloat16"), "adam_moment_dtype"),
-        (dict(field_impl="hash"), "hash"),
-        (dict(n_importance=8), "n_importance"),
-        (dict(train_probe_refresh=10), "train_probe_refresh"),
-    ],
-    ids=["bf16_moments", "hash_training", "importance", "baked_probe"],
-)
-def test_unported_training_options_raise(scene, kw, match):
-    _, cfg = cfgs(n_steps=2, train_rays=64, train_warmup_steps=0, **kw)
-    ds = tr.load_dataset(scene[0])
-    with pytest.raises(NotImplementedError, match=match):
-        ttr.train(ds, cfg, device="cpu")

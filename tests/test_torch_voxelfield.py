@@ -14,6 +14,10 @@ from nerf_prv_tpu_torch.nerf import model as tm
 from nerf_prv_tpu_torch.nerf import voxelfield as tvf
 from voxel_common import G, both, cfgs, np_params, points
 
+# one thread for PyTorch: the tests' tensors are tiny, and several test workers on
+# a few cores otherwise spend their time contending for them (minutes, not seconds)
+torch.set_num_threads(1)
+
 # f32 end to end; sin/cos/exp and the matmuls' summation order differ
 # between XLA and PyTorch on the CPU: measured below 4e-6 on raw densities
 # of magnitude up to ~10, the bound leaves a few times that
