@@ -19,7 +19,8 @@ Phases:
     against a float64 sum within a bound computed from the data and against
     the sort-based plain version, at both training shapes on uniform points
     and on a training batch's own march points, with two broken variants
-    that must fail.  Every kernel time is a device time
+    that must fail, beside the atomic adds its design rules issue and its
+    waves (both worked out on the host, and logged only).  Every kernel time is a device time
     (``device_ms``: a replayed CUDA graph of the wrapper's calls), printed
     beside the time of a call through the wrapper (``time_ms``), and the
     two are cross-checked where the kernel outlasts the host;
@@ -57,6 +58,14 @@ source, an ablated copy) with this tree's on one card in one call:
 builds each source (same C interface), prints its distance from
 ``hashgrid.encode`` and times all of them in turns, first to last and back,
 at the probe and march shapes on uniform and on served points.
+
+    python3 chip_smoke.py --k1b old=build/k1b/old.cu --k1b ...
+
+does the same for the table-gradient kernel: each source is held against
+the float64 sum within phase 2c's bound and all are timed in turns at phase
+2c's four shapes and on the four coarsest levels alone, beside the atomic
+adds each design rule issues (a host count) and each build's waves (the
+occupancy calculator's).
 """
 
 from __future__ import annotations
@@ -476,14 +485,14 @@ def phase_kernel_check(dev, params, ds, nerf_cfg: NerfConfig) -> dict:
     )
 
 
-def build_k1_sources(specs: list) -> dict:
+def build_sources(specs: list, tag: str, bind) -> dict:
     """nvcc every ``name=path`` source (all started together) into the build
-    directory; returns name -> bound library."""
+    directory; returns name -> library bound by ``bind``."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = []
     for spec in specs:
         name, _, path = spec.partition("=")
-        out = _build.BUILD_DIR / f"k1-{name}-{os.getpid()}.so"
+        out = _build.BUILD_DIR / f"{tag}-{name}-{os.getpid()}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), path]
         running.append((name, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -495,19 +504,21 @@ def build_k1_sources(specs: list) -> dict:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-        libs[name] = hash_encode_mod.bind(ctypes.CDLL(str(out)))
+        libs[name] = bind(ctypes.CDLL(str(out)))
     return libs
 
 
 @contextlib.contextmanager
-def k1_library(lib):
-    """Send the ``hash_encode`` wrapper's launches to another build."""
-    saved = hash_encode_mod._lib
-    hash_encode_mod._lib = lambda: lib
+def wrapper_library(loader: str, lib):
+    """Send a hash wrapper's launches to another build: ``loader`` is the
+    wrapper module's function that returns the built library, ``_lib``
+    (``hash_encode``) or ``_lib_backward`` (``hash_encode_backward``)."""
+    saved = getattr(hash_encode_mod, loader)
+    setattr(hash_encode_mod, loader, lambda: lib)
     try:
         yield
     finally:
-        hash_encode_mod._lib = saved
+        setattr(hash_encode_mod, loader, saved)
 
 
 def compare_k1(dev, specs: list, card: str):
@@ -518,16 +529,13 @@ def compare_k1(dev, specs: list, card: str):
     nerf_cfg, params = make_hash_field(dev)
     cfg, table = nerf_cfg.grid, params["table"]
     libs = {"tree": hash_encode_mod._lib()}
-    libs.update(build_k1_sources(specs))
+    libs.update(build_sources(specs, "k1", hash_encode_mod.bind))
     sets = encode_point_sets(dev, params, ds, nerf_cfg)
     ragged = sets.pop("uniform ragged")
-    # the four coarsest levels alone (the same resolutions: 16, 22, 30, 42)
-    coarse = HashGridConfig(levels=4, n_max=int(cfg.resolutions()[3]))
-    if [int(r) for r in coarse.resolutions()] != [int(r) for r in cfg.resolutions()[:4]]:
-        raise SystemExit("the coarse config does not reproduce the first four levels")
+    coarse = coarse_levels(cfg)  # resolutions 16, 22, 30, 42
     want = encode(table, ragged, cfg)
     for name, lib in libs.items():
-        with k1_library(lib):
+        with wrapper_library("_lib", lib):
             got = hash_encode(table, ragged, cfg)
         sync()
         log(f"{name}: max |kernel - plain| {float((got - want).abs().max()):.3e}")
@@ -540,7 +548,7 @@ def compare_k1(dev, specs: list, card: str):
         bound, by = encode_bound_ms(pts, c)
         times = {name: [] for name in libs}
         for name in order:
-            with k1_library(libs[name]):
+            with wrapper_library("_lib", libs[name]):
                 times[name].append(device_ms(lambda: hash_encode(tab, pts, c)))
         log(f"{label} (bound {bound:.5f} ms, {by}; {card}): " + "; ".join(
             f"{name} {a:.4f} {b:.4f}" for name, (a, b) in times.items()))
@@ -1295,6 +1303,56 @@ def backward_bound_ms(x, cfg: HashGridConfig) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def backward_atomics(x, cfg: HashGridConfig, merge_pairs: bool = True, presum_runs: bool = True) -> int:
+    """Atomic adds (vector instructions) that the table-gradient kernel
+    issues for ``x``, counted on the host by the kernel's rules: per level
+    one set of corner adds for each run of consecutive points in one cell
+    among each 32 (a warp; each point on its own without ``presum_runs``),
+    and per (y, z) one add for the two x-corners where their rows form an
+    aligned pair and F <= 2 (with ``merge_pairs``), else one per row (two
+    for F = 8)."""
+    n, f = x.shape[0], cfg.features
+    per_row = 2 if f == 8 else 1
+    warp_start = torch.arange(n, device=x.device) % 32 == 0
+    total = 0
+    for res in cfg.resolutions():
+        res = int(res)
+        cell = torch.clamp(torch.floor(x * float(res)), 0, res - 1).to(torch.int64)
+        if presum_runs:
+            head = warp_start.clone()
+            head[1:] |= (cell[1:] != cell[:-1]).any(dim=1)
+            cell = cell[head]
+        for dj, dk in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            r0 = _corner_indices(cell + torch.tensor([0, dj, dk], device=x.device), res, cfg.table_size)
+            r1 = _corner_indices(cell + torch.tensor([1, dj, dk], device=x.device), res, cfg.table_size)
+            pairs = int(((r0 ^ r1) == 1).sum()) if merge_pairs and f <= 2 else 0
+            total += pairs + 2 * per_row * (cell.shape[0] - pairs)
+    return total
+
+
+def backward_occupancy(lib, n: int, cfg: HashGridConfig):
+    """(blocks one SM holds at once, blocks in the grid, waves) of a build
+    of the table-gradient kernel on ``n`` points, from the build's own
+    ``hash_encode_backward_occupancy``; None for a build without it."""
+    fn = getattr(lib, "hash_encode_backward_occupancy", None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = ctypes.c_int
+    per_sm, grid = ctypes.c_int(), ctypes.c_int64()
+    if fn(n, cfg.levels, cfg.features, ctypes.byref(per_sm), ctypes.byref(grid)) != 0:
+        raise SystemExit("hash_encode_backward_occupancy failed")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return per_sm.value, grid.value, grid.value / (per_sm.value * sms)
+
+
+def occupancy_text(occ) -> str:
+    if occ is None:
+        return "waves not reported by this build"
+    return f"{occ[2]:.2f} waves ({occ[1]} blocks, {occ[0]} per SM at once)"
+
+
 def check_backward(x, g, cfg: HashGridConfig, label: str, timed: bool = False) -> dict:
     """One table-gradient shape: the kernel against a float64 sum within the
     data-computed bound and against the sort-based plain version, two broken
@@ -1338,29 +1396,66 @@ def check_backward(x, g, cfg: HashGridConfig, label: str, timed: bool = False) -
         log(f"hash_encode_backward {label}: {times_text(row)} (memset included), sorted plain version "
             f"{row['plain_ms']:.4f} ms, zeros + index_add_ on the materialised updates {row['library_ms']:.4f} ms "
             f"(materialising them {updates_ms:.4f} ms more), bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = {row['bound_ms'] / row['ms']:.3f} of the time")
+        # the kernel's own time (the call less its memset, a call on no
+        # points) against the atomics its design rules issue.  The count and
+        # the waves are worked out on the host (the rules; the occupancy
+        # calculator), not read from the card, so they stay in the log and
+        # out of the measured row
+        row["memset_ms"] = device_ms(lambda: hash_encode_backward(x[:0], g[:0], cfg))
+        adds = backward_atomics(x, cfg)
+        occ = backward_occupancy(hash_encode_mod._lib_backward(), x.shape[0], cfg)
+        own_ms = row["ms"] - row["memset_ms"]
+        corners = x.shape[0] * cfg.levels * 8 * (2 if cfg.features == 8 else 1)
+        log(f"hash_encode_backward {label}: kernel's own {own_ms:.4f} ms (memset {row['memset_ms']:.4f} ms); "
+            f"by the design's rules, counted on the host: {adds} atomic adds ({adds / corners:.3f} of one per "
+            f"corner), {adds / own_ms / 1e6:.1f} G adds/s; by the occupancy calculator: {occupancy_text(occ)}")
     return row
+
+
+def backward_point_sets(dev, params, source: BatchSource) -> dict:
+    """The points the table gradient is checked and timed on, at a warmup
+    and a tight step's shapes: one training batch's own march points, ray
+    by ray (the tight ones inside the intervals that ``params``' probe
+    tightens them to), and uniform ones with the cube's corners first."""
+    warm_cfg, _ = train_mod._phases(HASH_CFG, warm_start=False)[0]
+    uniform = torch.rand((BWD_WARM_N, 3), generator=torch.Generator(device=dev).manual_seed(12), device=dev)
+    uniform[:3] = torch.tensor([[0.0, 0.0, 0.0], [1 - 1e-6] * 3, [1.0, 1.0, 1.0]], device=dev)
+    warm_pts = train_march_points(source, warm_cfg)
+    tight_pts = train_march_points(source, HASH_CFG, params)
+    if (warm_pts.shape[0], tight_pts.shape[0]) != (BWD_WARM_N, BWD_TIGHT_N):
+        raise SystemExit("the training march's shapes are not the ones the table gradient is timed at")
+    res = [int(r) for r in HASH_CFG.grid.resolutions()]
+    for name, pts in (("warmup", warm_pts), ("tight", tight_pts)):
+        log(f"{name} march points {tuple(pts.shape)}: share in the cell of the point before, by level: "
+            + " ".join(f"{same_cell_share(pts, r):.2f}" for r in res))
+    return {
+        f"warmup N={BWD_WARM_N} ray-ordered": warm_pts,
+        f"warmup N={BWD_WARM_N} uniform": uniform,
+        f"tight N={BWD_TIGHT_N} ray-ordered": tight_pts,
+        f"tight N={BWD_TIGHT_N} uniform": uniform[:BWD_TIGHT_N].contiguous(),
+    }
+
+
+def coarse_levels(cfg: HashGridConfig) -> HashGridConfig:
+    """The four coarsest levels of ``cfg`` alone, at the same resolutions."""
+    res = [int(r) for r in cfg.resolutions()]
+    coarse = HashGridConfig(levels=4, n_max=res[3])
+    if [int(r) for r in coarse.resolutions()] != res[:4]:
+        raise SystemExit("the coarse config does not reproduce the first four levels")
+    return coarse
 
 
 def phase_backward_kernel(dev, params, source: BatchSource, k_hash: dict) -> dict:
     log("== phase 2c: both hash kernels at a training step's shapes: hash_encode against hashgrid.encode, "
         "hash_encode_backward against a float64 sum and the sorted plain version")
     cfg = HASH_CFG.grid
-    warm_cfg, _ = train_mod._phases(HASH_CFG, warm_start=False)[0]
-    gen = torch.Generator(device=dev).manual_seed(12)
+    gen = torch.Generator(device=dev).manual_seed(14)
 
     def cotangent(n, c):
         return torch.randn((n, c.out_dim), generator=gen, device=dev)
 
-    uniform = torch.rand((BWD_WARM_N, 3), generator=gen, device=dev)
-    uniform[:3] = torch.tensor([[0.0, 0.0, 0.0], [1 - 1e-6] * 3, [1.0, 1.0, 1.0]], device=dev)
-    warm_pts = train_march_points(source, warm_cfg)
-    tight_pts = train_march_points(source, HASH_CFG, params)
-    if (warm_pts.shape[0], tight_pts.shape[0]) != (BWD_WARM_N, BWD_TIGHT_N):
-        raise SystemExit("the training march's shapes are not the ones the table gradient is timed at")
-    res = [int(r) for r in cfg.resolutions()]
-    for name, pts in (("warmup", warm_pts), ("tight", tight_pts)):
-        log(f"{name} march points {tuple(pts.shape)}: share in the cell of the point before, by level: "
-            + " ".join(f"{same_cell_share(pts, r):.2f}" for r in res))
+    sets = backward_point_sets(dev, params, source)
+    warm_pts, uniform, tight_pts, _ = sets.values()
     # the forward at the three shapes a training step launches it at, on the
     # batch's own points, through the field whose probe placed them
     probe_pts = train_probe_points(source, HASH_CFG)
@@ -1372,12 +1467,6 @@ def phase_backward_kernel(dev, params, source: BatchSource, k_hash: dict) -> dic
         err = check_encode(params["table"], pts, cfg, f"default config, {label}")
         k_hash["shapes"].append(encode_row(params["table"], pts, cfg, label, err))
         k_hash["max_abs_err"] = max(k_hash["max_abs_err"], err)
-    sets = {
-        f"warmup N={BWD_WARM_N} ray-ordered": warm_pts,
-        f"warmup N={BWD_WARM_N} uniform": uniform,
-        f"tight N={BWD_TIGHT_N} ray-ordered": tight_pts,
-        f"tight N={BWD_TIGHT_N} uniform": uniform[:BWD_TIGHT_N].contiguous(),
-    }
     rows = [check_backward(pts, cotangent(pts.shape[0], cfg), cfg, label, timed=True)
             for label, pts in sets.items()]
     ragged = uniform[: BWD_TIGHT_N + 37].contiguous()
@@ -1389,9 +1478,7 @@ def phase_backward_kernel(dev, params, source: BatchSource, k_hash: dict) -> dic
     # where the time goes by level: the four coarsest levels alone (dense,
     # a few thousand rows for millions of adds) against all sixteen, each
     # less the memset of its own table (a call on no points)
-    coarse = HashGridConfig(levels=4, n_max=res[3])
-    if [int(r) for r in coarse.resolutions()] != res[:4]:
-        raise SystemExit("the coarse config does not reproduce the first four levels")
+    coarse = coarse_levels(cfg)
     nothing = torch.zeros((0, 3), device=dev)
     for label, pts in (("warmup ray-ordered", warm_pts), ("warmup uniform", uniform), ("tight ray-ordered", tight_pts)):
         g16, g4 = cotangent(pts.shape[0], cfg), cotangent(pts.shape[0], coarse)
@@ -1400,7 +1487,8 @@ def phase_backward_kernel(dev, params, source: BatchSource, k_hash: dict) -> dic
         z16 = device_ms(lambda: hash_encode_backward(nothing, g16[:0], cfg))
         z4 = device_ms(lambda: hash_encode_backward(nothing, g4[:0], coarse))
         log(f"hash_encode_backward by level, {label}: all 16 levels {t16:.4f} ms (memset {z16:.4f}), levels 0-3 "
-            f"alone {t4:.4f} ms (memset {z4:.4f}): {(t4 - z4) / (t16 - z16):.3f} of the kernel's own time")
+            f"alone {t4:.4f} ms (memset {z4:.4f}): {(t4 - z4) / (t16 - z16):.3f} of the kernel's own time, "
+            f"{backward_atomics(pts, coarse) / backward_atomics(pts, cfg):.3f} of its atomic adds")
     head = rows[0]
     return dict(
         name="hash_encode_backward", route="cuda",
@@ -1411,6 +1499,67 @@ def phase_backward_kernel(dev, params, source: BatchSource, k_hash: dict) -> dic
                        ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         shape=head["shape"], shapes=rows,
     )
+
+
+def compare_k1b(dev, specs: list, card: str):
+    """Other builds of the table-gradient kernel against this tree's, on one
+    card: each held against the float64 sum within its bound on phase 2c's
+    four point sets (the run fails only where this tree's misses it; an
+    ablation may drop work on purpose), then all timed in turns (first to last and back, two
+    device times each, memset included) beside ``zeros`` + ``index_add_`` on
+    the materialised updates, at those four shapes and on the four coarsest
+    levels alone."""
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        source = BatchSource(load_dataset(write_scene(root, dev, "train", N_TRAIN_FRAMES, turn=0.0)), dev)
+    _, params = make_hash_field(dev)
+    cfg = HASH_CFG.grid
+    libs = {"tree": hash_encode_mod._lib_backward()}
+    libs.update(build_sources(specs, "k1b", hash_encode_mod.bind_backward))
+    sets = backward_point_sets(dev, params, source)
+    del params
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for label, pts in sets.items():
+        g = torch.randn((pts.shape[0], cfg.out_dim), generator=gen, device=dev)
+        want, tol, _ = table_grad_reference(pts, g, cfg)
+        for name, lib in libs.items():
+            with wrapper_library("_lib_backward", lib):
+                got = hash_encode_backward(pts, g, cfg)
+            excess = table_grad_excess(got, want, tol)
+            right = bool(torch.isfinite(got).all()) and excess <= 0.0
+            log(f"{name}, {label}: |kernel - f64| max {float((got.double() - want).abs().max()):.3e}, "
+                f"{excess:.3e} beyond the bound: {'within it' if right else 'WRONG'}")
+            # another build may drop work on purpose (an ablation): only this
+            # tree's kernel has to be right
+            if name == "tree" and not right:
+                raise SystemExit(f"the tree's kernel misses the float64 sum's bound on {label}")
+        del want, tol, got
+    coarse = coarse_levels(cfg)
+    cases = [(label, pts, cfg) for label, pts in sets.items()]
+    cases += [(f"levels 0-3 only, {label}", sets[label], coarse)
+              for label in (f"warmup N={BWD_WARM_N} ray-ordered", f"warmup N={BWD_WARM_N} uniform",
+                            f"tight N={BWD_TIGHT_N} ray-ordered")]
+    order = list(libs) + list(reversed(libs))
+    for label, pts, c in cases:
+        g = torch.randn((pts.shape[0], c.out_dim), generator=gen, device=dev)
+        memset = device_ms(lambda: hash_encode_backward(pts[:0], g[:0], c))
+        n_corner = pts.shape[0] * c.levels * 8 * (2 if c.features == 8 else 1)
+        log(f"{label}: atomic adds one per corner {n_corner}, without the pair merge "
+            f"{backward_atomics(pts, c, merge_pairs=False)}, without the run pre-sum "
+            f"{backward_atomics(pts, c, presum_runs=False)}, with both {backward_atomics(pts, c)}; memset "
+            f"{memset:.4f} ms; " + "; ".join(
+                f"{name} {occupancy_text(backward_occupancy(lib, pts.shape[0], c))}" for name, lib in libs.items()))
+        times = {name: [] for name in libs}
+        for name in order:
+            with wrapper_library("_lib_backward", libs[name]):
+                times[name].append(device_ms(lambda: hash_encode_backward(pts, g, c)))
+        idx, upd = table_grad_updates(pts, g, c)
+        rows = c.levels * c.table_size
+        library = device_ms(lambda: torch.zeros((rows, c.features), device=dev).index_add_(0, idx, upd), iters=5)
+        del idx, upd
+        bound, by = backward_bound_ms(pts, c)
+        log(f"{label} (bound {bound:.5f} ms, {by}; {card}): " + "; ".join(
+            f"{name} {a:.4f} {b:.4f}" for name, (a, b) in times.items())
+            + f"; zeros + index_add_ {library:.4f}")
 
 
 def phase_hash_train(dev, root: str, train_json: str, test_json: str, source: BatchSource,
@@ -1616,6 +1765,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
                         help="only compare these builds of the hash-encode kernel with the tree's")
+    parser.add_argument("--k1b", action="append", default=[], metavar="NAME=SOURCE.cu",
+                        help="only compare these builds of the table-gradient kernel with the tree's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1629,6 +1780,9 @@ def main() -> int:
     log(card)
     if args.k1:
         compare_k1(dev, args.k1, card)
+        return 0
+    if args.k1b:
+        compare_k1b(dev, args.k1b, card)
         return 0
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
         train_json = write_scene(root, dev, "train", N_TRAIN_FRAMES, turn=0.0)

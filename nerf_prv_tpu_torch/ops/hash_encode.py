@@ -7,7 +7,8 @@ Counterpart of ``nerf_prv_tpu/ops/hash_encode.py``.  The forward kernel
 :func:`nerf_prv_tpu_torch.nerf.hashgrid.encode`, which the kernel
 reproduces, dense-or-hashed level choice included.  The backward kernel
 (``csrc/hash_encode_backward.cu``) adds every point's corner-weighted output
-gradient into the table with atomics; its plain version is the reference's
+gradient into the table with atomics, after summing runs of points that
+share a cell within a warp; its plain version is the reference's
 sort-based chain, :func:`~.sorted_grad.table_grad_sorted`.
 
 :func:`hash_encode` and :func:`hash_encode_backward` take the plain version
@@ -127,8 +128,8 @@ def hash_encode(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig) -> to
 hash_encode.launches = 0  # kernel launches since the count was last reset
 
 
-def _lib_backward() -> ctypes.CDLL:
-    lib = _build.load("hash_encode_backward")
+def bind_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``hash_encode_backward`` library."""
     fn = lib.hash_encode_backward
     if fn.argtypes is None:
         fn.argtypes = [
@@ -141,6 +142,10 @@ def _lib_backward() -> ctypes.CDLL:
         lib.hash_encode_backward_error_string.argtypes = [ctypes.c_int]
         lib.hash_encode_backward_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _lib_backward() -> ctypes.CDLL:
+    return bind_backward(_build.load("hash_encode_backward"))
 
 
 def _check_backward_args(x: torch.Tensor, g: torch.Tensor, cfg: HashGridConfig) -> None:
@@ -163,9 +168,11 @@ def _check_backward_args(x: torch.Tensor, g: torch.Tensor, cfg: HashGridConfig) 
 def hash_encode_backward(x: torch.Tensor, g: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
     """Table gradient of :func:`hash_encode`: x (N, 3), output cotangent g
     (N, levels*features) -> d_table (levels*table_size, features), float32,
-    from zeros.  The kernel adds with atomics in no fixed order, so a row
-    that receives several updates differs from run to run in its last
-    bits: compare within a tolerance, never exactly."""
+    from zeros.  The kernel sums runs of consecutive points that share a
+    cell within a warp, then adds with atomics (the two x-neighbour rows of
+    an aligned pair as one vector) in no fixed order, so a row that
+    receives several updates differs from run to run in its last bits:
+    compare within a tolerance, never exactly."""
     _check_backward_args(x, g, cfg)
     if x.device.type == "cpu":
         return table_grad_sorted(x, g, cfg)

@@ -241,6 +241,65 @@ def test_hash_encode_backward_kernel_matches_float64_sum(cuda_device, features, 
     assert float((got - plain).abs().max()) <= 1e-3 * float(want.abs().max())
 
 
+def _design_points(case, dev):
+    """Points that reach one branch of the table-gradient kernel each: a
+    warp's 32 points in one cell of every level (one run is the whole
+    warp); rays of 24 samples after a first one of 8 (every later run
+    crosses a warp's edge); rays of 20 samples ending in a last warp of 7
+    live lanes; or points whose cell has only even or only odd cx."""
+    rng = np.random.default_rng(11)
+    if case == "one_run":
+        x = 0.3 + rng.uniform(0, 1e-4, size=(32, 3))
+    elif case in ("runs_cross_warps", "ragged_last_warp"):
+        lengths = [8] + [24] * 40 if case == "runs_cross_warps" else [20] * 8 + [7]
+        rays = []
+        for k in lengths:  # a chord of 0.01: one cell on the coarse levels
+            o = rng.uniform(0.2, 0.8, size=3)
+            d = rng.normal(size=3)
+            rays.append(o + np.linspace(0.0, 0.01, k)[:, None] * (d / np.linalg.norm(d)))
+        x = np.concatenate(rays)
+    else:
+        res = 15 if case.endswith("dense") else 2048
+        x = rng.uniform(0, 1, size=(1000, 3))
+        cx = 2 * rng.integers(0, res // 2, size=1000) + (1 if case.startswith("odd") else 0)
+        x[:, 0] = (cx + rng.uniform(0.05, 0.95, size=1000)) / res
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["one_run", "runs_cross_warps", "ragged_last_warp", "even_cx_dense", "odd_cx_dense", "even_cx_hashed",
+     "odd_cx_hashed"],
+)
+@pytest.mark.parametrize("features", [1, 2, 4, 8])
+def test_hash_encode_backward_kernel_runs_and_x_pairs(cuda_device, features, case):
+    """The kernel's runs of equal cells (summed inside a warp before the
+    atomics) and its aligned x-pairs (one vector add for F <= 2): a run that
+    is a whole warp, runs cut at a warp's edge, a ragged last warp, and a
+    dense (res + 1 even, so a row's parity is cx's) and a hashed level whose
+    x-corner rows all form aligned pairs (even cx) or none (odd cx).  Held
+    against the float64 sum within the f32 summation bound, which holds for
+    any order of the adds, pre-sums included."""
+    if case.endswith("dense"):
+        cfg = HashGridConfig(levels=1, features=features, n_min=15)
+    elif case.endswith("hashed"):
+        cfg = HashGridConfig(levels=1, features=features, log2_table=12, n_min=2048)
+    else:
+        cfg = HashGridConfig(features=features)
+    x = _design_points(case, cuda_device)
+    n = x.shape[0]
+    g = torch.randn((n, cfg.out_dim), generator=torch.Generator(device=cuda_device).manual_seed(features),
+                    device=cuda_device)
+    before = hash_encode_backward.launches
+    got = hash_encode_backward(x, g, cfg)
+    torch.cuda.synchronize()
+    assert hash_encode_backward.launches == before + 1
+    want, tol = _table_grad_f64(x, g, cfg)
+    err = (got.double() - want).abs()
+    assert bool(torch.isfinite(got).all()) and bool((err <= tol).all()), float((err - tol).max())
+    assert float(got.abs().max()) > 0
+
+
 def test_hash_encode_backward_kernel_empty_input_zeroes_and_launches_nothing(cuda_device):
     cfg = HashGridConfig(levels=2, log2_table=8, n_min=4, n_max=16)
     before = hash_encode_backward.launches
