@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 Phases:
-(1) build the four kernels from ``nerf_prv_tpu_torch/ops/csrc``, one nvcc
+(1) build the six kernels from ``nerf_prv_tpu_torch/ops/csrc``, one nvcc
     process each, started together;
 (2) each kernel against its plain version at the paths' full shapes, timed
     beside its bound and the library call for the same work:
@@ -45,7 +45,17 @@ Phases:
     step through their plain versions (loss and every gradient);
 (9) a short run each of the other training and render options on the card:
     bf16 Adam moments, the baked train probe, importance resampling, the
-    span-bucketed eval against the unbucketed one, mesh export.
+    span-bucketed eval against the unbucketed one, mesh export;
+(10) the coverage-dataset path at full width: a procedural OBJ sampled to a
+    500,000-point PLY, ``load_object`` with the ShapeNet size augmentation
+    (K8), ``precept`` of the loaded object (K9), ``get_coverage`` (50 views)
+    and ``generate_novel_sets`` (100 + 100), with the files checked; K8 held
+    bit-equal to ``splat_plain`` on full-size frames and K9 to
+    ``voxel_cast_plain`` on a chunk of one view's rays, each with broken
+    variants that must fail; the voxel field trained on the port-rendered
+    coverage set and scored on the novel test set; both kernels timed
+    beside their bounds, each held bit-equal to the timed plain call, and
+    one ``get_coverage`` profiled.
 Any failure exits non-zero.  The line before the last is the kernel table
 as JSON, the last line the device.  It imports nothing of JAX or of
 ``nerf_prv_tpu``.
@@ -87,10 +97,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from nerf_prv_tpu_torch.core.config import CameraConfig  # noqa: E402
+from nerf_prv_tpu_torch.core.config import CameraConfig, Config  # noqa: E402
 from nerf_prv_tpu_torch.core.pose import camera_to_world  # noqa: E402
 from nerf_prv_tpu_torch.core.transforms import (  # noqa: E402
-    add_frame, load_transforms, make_root, scaled_camera, write_transforms,
+    add_frame, load_transforms, make_root, scaled_camera, unmap_pose, write_transforms,
 )
 from nerf_prv_tpu_torch.nerf import api as api_mod  # noqa: E402
 from nerf_prv_tpu_torch.nerf import render as render_mod  # noqa: E402
@@ -111,8 +121,19 @@ from nerf_prv_tpu_torch.ops import fused as fused_mod  # noqa: E402
 from nerf_prv_tpu_torch.ops.hash_encode import hash_encode, hash_encode_backward  # noqa: E402
 from nerf_prv_tpu_torch.ops.row_gather import row_gather, row_gather_plain  # noqa: E402
 from nerf_prv_tpu_torch.ops.row_scatter_add import row_scatter_add, row_scatter_add_plain  # noqa: E402
+from nerf_prv_tpu_torch.ops import splat as splat_mod  # noqa: E402
+from nerf_prv_tpu_torch.ops import voxel_cast as cast_mod  # noqa: E402
 from nerf_prv_tpu_torch.ops.sorted_grad import _levelwise_indices_weights, table_grad_sorted  # noqa: E402
+from nerf_prv_tpu_torch.ops.splat import splat, splat_plain  # noqa: E402
+from nerf_prv_tpu_torch.ops.voxel_cast import voxel_cast, voxel_cast_plain  # noqa: E402
+from nerf_prv_tpu_torch.pipeline.coverage import generate_novel_sets, get_coverage  # noqa: E402
+from nerf_prv_tpu_torch.runtime import native  # noqa: E402
+from nerf_prv_tpu_torch.scene.mesh_sampling import sample_and_voxelize  # noqa: E402
+from nerf_prv_tpu_torch.scene.object_setup import load_object  # noqa: E402
 from nerf_prv_tpu_torch.scene.ply import load_ply  # noqa: E402
+from nerf_prv_tpu_torch.scene.render import _colors01, _world_to_camera, object_pixel_rate  # noqa: E402
+from nerf_prv_tpu_torch.scene.voxel import precept, precept_rays  # noqa: E402
+from nerf_prv_tpu_torch.viewspace.hemisphere import ViewSpace, load_view_space  # noqa: E402
 
 # the hash-encode wrapper's module (the package exports the function under
 # the module's name, so ``import`` yields the function)
@@ -203,6 +224,36 @@ HASH_STEP_GRAD_TOL = 1e-3
 SPAN_BUCKET_PSNR_MIN = 40.0
 SPAN_BUCKET_CHUNK = 1 << 15
 OPTION_STEPS = 150  # depth of each option's short training run
+
+# phase 10, the coverage-dataset path at the reference's full width: the L0
+# sampling defaults, the default camera, 50 coverage and 100 + 100 novel views
+OBJ_NAME = "procedural0"
+OBJ_POINTS = 500_000
+OBJ_GRID = 1024
+COVERAGE_VIEWS = 50
+# rows of one 1280x720 view whose rays K9 is held against the plain march
+# on (the plain version materialises 1,000 steps a ray)
+CAST_ROWS = (320, 400)
+# the voxel field trained on the port-rendered coverage set, scored on the
+# novel test views: steps, and the dB by which its eval PSNR must beat an
+# all-black frame's; measured 32.40 against 16.30 dB, 16.1 dB above, on an
+# H100 80GB HBM3 (700 W)
+COVERAGE_STEPS = 500
+COVERAGE_PSNR_MARGIN_DB = 10.0
+# the broken K8 and K9 variants (edited copies of the sources) the checks must catch
+SPLAT_BROKEN = {
+    "ties to the lowest index": [
+        ("if (z <= add(zmin, 1e-7f) && __ldcg(winner + p) < idx) atomicMax(winner + p, idx);",
+         "if (z <= add(zmin, 1e-7f)) atomicMax(winner + p, 2147483646 - idx);"),
+        ("  const int w = winner[t];\n  const unsigned char a",
+         "  const int w = winner[t] < 0 ? -1 : 2147483646 - winner[t];\n  const unsigned char a"),
+    ],
+    "roundf in place of round half to even": [
+        ("rintf(add(mul(x, c.fx), c.ppx))", "roundf(add(mul(x, c.fx), c.ppx))"),
+        ("rintf(add(mul(y, c.fy), c.ppy))", "roundf(add(mul(y, c.fy), c.ppy))"),
+    ],
+}
+CAST_LAST_HIT = [("      found = true;\n      break;", "      found = true;")]
 
 
 def log(*a):
@@ -318,7 +369,8 @@ def card_line() -> str:
 def phase_build():
     log("== phase 1: build")
     t0 = time.perf_counter()
-    logs = _build.build(["hash_encode", "hash_encode_backward", "row_gather", "row_scatter_add"])
+    logs = _build.build(["hash_encode", "hash_encode_backward", "row_gather", "row_scatter_add", "splat",
+                         "voxel_cast"])
     log(f"built in {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -863,7 +915,8 @@ def rays_per_s_line(ds, dt: float) -> str:
 
 _FAMILIES = (  # first match wins
     ("own kernels", ("hash_encode_kernel", "hash_encode_backward_kernel", "row_gather_kernel",
-                     "row_scatter_add_kernel")),
+                     "row_scatter_add_kernel", "splat_init", "splat_depth", "splat_winner", "splat_resolve",
+                     "voxel_cast_kernel")),
     ("GEMMs", ("gemm", "nvjet", "cutlass", "cublas", "splitK")),
     ("Adam", ("multi_tensor_apply",)),
     ("copies and cats", ("CatArray", "copy_kernel", "Memcpy", "Memset")),
@@ -893,16 +946,19 @@ def profile_device(fn, label: str, wall_s: float, top: int = 20, tries: int = 3,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    wrappers = (hash_encode, hash_encode_backward, row_gather, row_scatter_add)
+    # (wrapper, kernels one of its launches runs): K8 runs four (init, depth,
+    # winner, resolve)
+    wrappers = ((hash_encode, 1), (hash_encode_backward, 1), (row_gather, 1), (row_scatter_add, 1), (splat, 4),
+                (voxel_cast, 1))
     for attempt in range(1, tries + 1):
         sync()
-        before = sum(w.launches for w in wrappers)
+        before = sum(w.launches * k for w, k in wrappers)
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             sync()
         wall_us = (time.perf_counter() - t0) * 1e6
-        launched = sum(w.launches for w in wrappers) - before
+        launched = sum(w.launches * k for w, k in wrappers) - before
         by_name = {}
         for e in prof.events():
             # kernels and copies, not host ops; "Optimizer.step#..." is a span
@@ -1761,6 +1817,396 @@ def phase_options(dev, root: str, train_json: str, vparams, vcfg, test_ds, card:
         raise SystemExit(f"the exported surface is not the trained sphere (median radius {np.median(radius):.3f})")
 
 
+# --- phase 10: the coverage-dataset path --------------------------------------
+
+
+def write_procedural_obj(path: str) -> None:
+    """A chair-like mesh in ShapeNet's frame (Y up, extent ~1.5): seat,
+    cushion, back and four legs as boxes, each part with its own ``Kd``
+    colour from ``parts.mtl``."""
+    parts = [  # (material, Kd, lo, hi)
+        ("seat", (0.75, 0.25, 0.1), (-0.4, 0.0, -0.4), (0.4, 0.08, 0.4)),
+        ("cushion", (0.9, 0.8, 0.2), (-0.32, 0.08, -0.3), (0.32, 0.15, 0.34)),
+        ("back", (0.1, 0.35, 0.8), (-0.4, 0.08, -0.4), (0.4, 0.9, -0.32)),
+        ("legs", (0.25, 0.25, 0.25), (-0.4, -0.6, -0.4), (-0.32, 0.0, -0.32)),
+        ("legs", None, (0.32, -0.6, -0.4), (0.4, 0.0, -0.32)),
+        ("legs", None, (-0.4, -0.6, 0.32), (-0.32, 0.0, 0.4)),
+        ("legs", None, (0.32, -0.6, 0.32), (0.4, 0.0, 0.4)),
+    ]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(os.path.join(os.path.dirname(path), "parts.mtl"), "w") as f:
+        for name, kd, _, _ in parts:
+            if kd is not None:
+                f.write(f"newmtl {name}\nKd {kd[0]} {kd[1]} {kd[2]}\n")
+    quads = [(1, 2, 3, 4), (5, 8, 7, 6), (1, 5, 6, 2), (2, 6, 7, 3), (3, 7, 8, 4), (5, 1, 4, 8)]
+    with open(path, "w") as f:
+        f.write("mtllib parts.mtl\n")
+        for k, (name, _, lo, hi) in enumerate(parts):
+            for x, y, z in ((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0), (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1)):
+                f.write(f"v {(lo, hi)[x][0]} {(lo, hi)[y][1]} {(lo, hi)[z][2]}\n")
+            f.write(f"usemtl {name}\n")
+            for q in quads:
+                f.write("f " + " ".join(str(8 * k + i) for i in q) + "\n")
+
+
+def native_loader_line() -> str:
+    """Build the repo's native IO runtime (``make -C csrc``) where it is not
+    built yet, and say which PLY loader the path takes."""
+    if not native.available():
+        csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+        proc = subprocess.run(["make", "-C", csrc], capture_output=True, text=True)
+        native._TRIED, native._LIB = False, None
+        if proc.returncode != 0:
+            return f"native PLY loader not built (make -C csrc: exit {proc.returncode}); the Python parser reads"
+    return "native PLY loader (csrc/libprv_runtime.so)" if native.available() else "Python PLY parser"
+
+
+def check_dataset_files(cfg, scene, cov_json: str, novel_jsons: list) -> tuple:
+    """The coverage and novel sets on disk: PNG counts, every json pose
+    against ``camera_to_world`` of the views it was rendered from, and the
+    coverage frames' object pixel rate (mean, min)."""
+    from PIL import Image
+
+    unit = load_view_space(cfg.viewspace_path, COVERAGE_VIEWS)
+    views = ViewSpace(unit, scene.points, cfg.view_space_radius).views
+    center = scene.object_center
+    train_v = np.loadtxt(os.path.join(cfg.workspace, "novel_train_views.txt"))
+    test_v = np.loadtxt(os.path.join(cfg.workspace, "novel_test_views.txt"))
+    sets = [(cov_json, str(COVERAGE_VIEWS), views)]
+    for path, sub, v in zip(novel_jsons, ("novel_train", "novel_test"), (train_v, test_v)):
+        sets.append((path, sub, v / np.linalg.norm(v, axis=1, keepdims=True) * cfg.view_space_radius + center))
+    for path, sub, pos in sets:
+        pngs = sorted(os.listdir(os.path.join(cfg.gt_path, sub)))
+        want = camera_to_world(pos, center)
+        with open(path) as f:
+            got = np.array([unmap_pose(np.asarray(fr["transform_matrix"])) for fr in json.load(f)["frames"]])
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+        log(f"{os.path.basename(path)}: {len(pngs)} PNGs, {len(got)} frames, poses off camera_to_world by {err:.1e}")
+        # the coverage views were rendered from the generated view space before
+        # its file (8 significant digits) was written, and are read back here
+        if len(pngs) != len(pos) or len(got) != len(pos) or err > 1e-7:
+            raise SystemExit(f"{path}: wrong PNG count or poses")
+    rates = [object_pixel_rate(np.asarray(Image.open(os.path.join(cfg.gt_path, str(COVERAGE_VIEWS),
+                                                                  f"rgbaClip_{i}.png")))[..., 3])
+             for i in range(COVERAGE_VIEWS)]
+    return float(np.mean(rates)), float(np.min(rates))
+
+
+def splat_check_inputs(scene, dev, c2ws):
+    """The loaded object's points with every 7th repeated at the end in a
+    random colour (exact depth ties whose colours differ), and the first
+    four coverage frames' world-to-camera matrices."""
+    pts = torch.from_numpy(np.asarray(scene.points, np.float32)).to(dev)
+    col = _colors01(scene.colors, len(pts), dev)
+    g = torch.Generator(device=dev).manual_seed(31)
+    dup = pts[::7]
+    pts = torch.cat([pts, dup]).contiguous()
+    col = torch.cat([col, torch.rand((len(dup), 3), generator=g, device=dev)]).contiguous()
+    return pts, col, _world_to_camera(c2ws[:4]).to(dev)
+
+
+def check_splat(pts, col, w2c, variants: dict) -> None:
+    """K8 against ``splat_plain`` on four full-size frames at point sizes 5
+    and 1 (u8 RGBA, every pixel) and on one frame in f32; then each broken
+    variant, which must differ somewhere."""
+    wants = {}
+    for ps in (5, 1):
+        got, want = splat(pts, col, w2c, CAMERA, ps), splat_plain(pts, col, w2c, CAMERA, ps)
+        wants[ps] = want
+        sync()
+        covered = float((want[..., 3] > 0).float().mean())
+        log(f"K8, {w2c.shape[0]} frames {CAMERA.width}x{CAMERA.height}, {len(pts)} points, point size {ps}: "
+            f"{'bit-equal' if torch.equal(got, want) else 'DIFFERENT'} to splat_plain, {covered:.4f} of pixels covered")
+        if not torch.equal(got, want):
+            raise SystemExit(f"K8 disagrees with splat_plain at point size {ps}: "
+                             f"{int((got != want).any(-1).sum())} pixels differ")
+    rgb, alpha = splat(pts, col, w2c[:1], CAMERA, 5, rgba_u8=False)
+    rgb_p, alpha_p = splat_plain(pts, col, w2c[:1], CAMERA, 5, rgba_u8=False)
+    if not (torch.equal(rgb, rgb_p) and torch.equal(alpha, alpha_p)):
+        raise SystemExit("K8's f32 output disagrees with splat_plain")
+    log("K8 f32 rgb + alpha, one frame, point size 5: bit-equal to splat_plain")
+    for name, lib in variants.items():
+        saved = splat_mod._lib
+        splat_mod._lib = lambda lib=lib: lib
+        try:
+            diff = [int((splat(pts, col, w2c, CAMERA, ps) != wants[ps]).any(-1).sum()) for ps in (5, 1)]
+        finally:
+            splat_mod._lib = saved
+        log(f"  broken on purpose, K8 with {name}: {diff[0]} / {diff[1]} pixels differ at point size 5 / 1 -> "
+            f"{'caught' if sum(diff) else 'NOT caught'}")
+        if not sum(diff):
+            raise SystemExit(f"the K8 check does not catch {name}")
+
+
+def check_cast(scene, c2w, dev, broken) -> None:
+    """K9 through ``precept`` on one full view against ``voxel_cast_plain``
+    on the rays of rows CAST_ROWS (hit flags, centres, colours bit-equal),
+    and the broken last-hit variant, which must differ."""
+    lo, hi = (r * CAMERA.width for r in CAST_ROWS)
+    o, d = precept_rays(c2w, CAMERA, dev)
+    got = [t.reshape(CAMERA.height * CAMERA.width, -1)[lo:hi] for t in precept(scene.gt_scene, c2w, CAMERA)]
+    gs = scene.gt_scene
+    n_steps = int(np.ceil(1.0 / gs.resolution * 2.0))
+    want = voxel_cast_plain(gs.occupancy, gs.color_grid, gs.origin, gs.resolution, o[lo:hi].contiguous(),
+                            d[lo:hi].contiguous(), 1.0, n_steps)
+    same = [torch.equal(a.reshape(b.shape), b) for a, b in zip(got, want)]
+    share = float(want[0].float().mean())
+    log(f"K9 through precept, rows {CAST_ROWS[0]}-{CAST_ROWS[1]} of a {CAMERA.width}x{CAMERA.height} view "
+        f"({hi - lo} rays, {n_steps} steps, {share:.4f} hit): hit/centre/colour bit-equal to voxel_cast_plain: {same}")
+    if not all(same) or not 0.0 < share < 1.0:
+        raise SystemExit("K9 disagrees with voxel_cast_plain, or the rays compared are all hits or all misses")
+    saved = cast_mod._lib
+    cast_mod._lib = lambda: broken
+    try:
+        bad = precept(scene.gt_scene, c2w, CAMERA)[1].reshape(-1, 3)[lo:hi]
+    finally:
+        cast_mod._lib = saved
+    moved = int((bad != want[1]).any(-1).sum())
+    log(f"  broken on purpose, K9 that returns the last hit: {moved} rays' centres differ -> "
+        f"{'caught' if moved else 'NOT caught'}")
+    if not moved:
+        raise SystemExit("the K9 check does not catch a last-hit march")
+
+
+def splat_masks(pts, w2c, ps: int):
+    """(flat pixel index, depth) of every in-frame splat of every frame, as
+    ``splat_plain`` builds them: the work K8's atomics do, and the input of
+    the library call it is timed beside."""
+    from nerf_prv_tpu_torch.ops.splat import _frame_projection
+
+    half = ps // 2
+    offs = torch.arange(-half, ps - half, device=pts.device)
+    du, dv = (t.reshape(-1) for t in torch.meshgrid(offs, offs, indexing="ij"))
+    flats, depths = [], []
+    for f, m in enumerate(w2c):
+        uf, vf, z, valid = _frame_projection(pts, m, CAMERA, ps)
+        ui, vi = uf[valid].to(torch.int64), vf[valid].to(torch.int64)
+        uu, vv = (ui[:, None] + du).reshape(-1), (vi[:, None] + dv).reshape(-1)
+        ok = (uu >= 0) & (uu < CAMERA.width) & (vv >= 0) & (vv < CAMERA.height)
+        flats.append(((vv * CAMERA.width + uu) + f * CAMERA.width * CAMERA.height)[ok])
+        depths.append(z[valid].repeat_interleave(ps * ps)[ok])
+    return torch.cat(flats), torch.cat(depths)
+
+
+def splat_bound_ms(n_points: int, frames: int, u8: bool, ps: int, n_splats: int) -> tuple:
+    """Least time for one K8 call: points and colours read once and the
+    frames written once over HBM, or the arithmetic at the f32 peak: per
+    (point, frame) the transform (9 multiplies, 9 adds), 2 divides, the
+    distortion (27 operations at models 1-2) and the pixel (2 multiply-adds,
+    2 roundings, 6 tests), twice (the two passes recompute it); per splat
+    one depth test in each pass."""
+    out = frames * CAMERA.width * CAMERA.height * (4 if u8 else 16)
+    bytes_moved = n_points * 24 + frames * 48 + out
+    ops = 2 * n_points * frames * (18 + 2 + 27 + 12) + 2 * n_splats
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def march_steps(gs, o, d, n_steps: int) -> int:
+    """Steps the rays (o, d) take through the scene's grid up to and
+    including their first hit (all ``n_steps`` for a miss), by the plain
+    march: the work K9 does on this run's data."""
+    return sum(int(torch.where(hit, first + 1, n_steps).sum()) for hit, first, _ in cast_mod.march_chunks(
+        gs.occupancy, gs.origin, gs.resolution, o, d, 1.0, n_steps))
+
+
+def cast_bound_ms(n_rays: int, grid_cells: int, steps: int) -> tuple:
+    """Least time for one K9 call: rays read and hit, centre and colour
+    written once, the occupancy grid and each ray's voxel colour read once,
+    over HBM; or the march at the f32 peak, 20 operations a step (the
+    sample's t, then per axis a multiply, two adds, a divide and a floor,
+    and the bounds tests)."""
+    bytes_moved = n_rays * (24 + 1 + 12 + 12 + 12) + grid_cells
+    ops = 20 * steps + 9 * n_rays
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_output(fn, warmup: int) -> tuple:
+    """``time_ms`` of one call of ``fn``, and that call's output."""
+    out = []
+    ms = time_ms(lambda: out.append(fn()), iters=1, warmup=warmup)
+    return ms, out[-1]
+
+
+def outputs_err(label: str, got, want) -> float:
+    """Largest |kernel - plain| over the outputs (a tensor or a tuple of
+    them; a flipped hit flag counts 1).  The run fails unless every output
+    is bit-equal."""
+    pairs = list(zip(got, want)) if isinstance(want, tuple) else [(got, want)]
+    err = max(float((a.double() - b.double()).abs().max()) if b.numel() else 0.0 for a, b in pairs)
+    if err or not all(torch.equal(a, b) for a, b in pairs):
+        raise SystemExit(f"{label}: the kernel disagrees with its plain version on the timed inputs "
+                         f"(max |kernel - plain| {err})")
+    return err
+
+
+def time_kernels_coverage(scene, dev, c2ws, card) -> tuple:
+    """K8 at the size test's shape (one frame, f32) and the coverage set's
+    (50 frames, u8), and K9 on one full view, each beside its plain version,
+    its bound and (K8) ``scatter_reduce_`` "amin" on the same splats."""
+    pts = torch.from_numpy(np.asarray(scene.points, np.float32)).to(dev)
+    col = _colors01(scene.colors, len(pts), dev)
+    w2c = _world_to_camera(c2ws).to(dev)
+    ps = 5
+    rows = []
+    for frames, u8 in ((1, False), (COVERAGE_VIEWS, True)):
+        m = w2c[:frames].contiguous()
+        label = f"F={frames} {'u8 RGBA' if u8 else 'f32 rgb + alpha'} {CAMERA.width}x{CAMERA.height}, N={len(pts)}, ps={ps}"
+        flat, depth = splat_masks(pts, m, ps)
+        n_pix = frames * CAMERA.width * CAMERA.height
+        zero = torch.full((n_pix,), float("inf"), device=dev)
+        row = dict(shape=label)
+        iters = 50 if frames == 1 else 5
+        row["ms"] = device_ms(lambda: splat(pts, col, m, CAMERA, ps, rgba_u8=u8), iters=iters)
+        row["call_ms"] = min(time_ms(lambda: splat(pts, col, m, CAMERA, ps, rgba_u8=u8), iters=iters) for _ in range(2))
+        # the plain version takes ~0.5 s a frame: one call, no warmup
+        row["plain_ms"], want = timed_output(lambda: splat_plain(pts, col, m, CAMERA, ps, rgba_u8=u8),
+                                             warmup=0 if frames > 1 else 1)
+        row["max_abs_err"] = outputs_err(f"K8 {label}", splat(pts, col, m, CAMERA, ps, rgba_u8=u8), want)
+        del want
+        row["library_ms"] = device_ms(lambda: zero.clone().scatter_reduce_(0, flat, depth, "amin"), iters=iters)
+        row["bound_ms"], row["bound_by"] = splat_bound_ms(len(pts), frames, u8, ps, flat.numel())
+        log(f"K8 {label}: device {row['ms']:.4f} ms, call {row['call_ms']:.4f} ms, splat_plain {row['plain_ms']:.4f} ms, "
+            f"scatter_reduce_ amin on the {flat.numel()} materialised splats (z-buffer only) {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = {row['bound_ms'] / row['ms']:.3f} of the time; "
+            f"{flat.numel() / frames:.0f} in-frame splats a frame, each a depth test and a winner test; "
+            f"bit-equal to the timed splat_plain call ({card})")
+        rows.append(row)
+        del flat, depth, zero
+    gs = scene.gt_scene
+    o, d = precept_rays(c2ws[0], CAMERA, dev)
+    n_steps = int(np.ceil(1.0 / gs.resolution * 2.0))
+    args = (gs.occupancy, gs.color_grid, gs.origin, gs.resolution, o, d, 1.0, n_steps)
+    cast = dict(shape=f"R={o.shape[0]} rays, {n_steps} steps, grid {tuple(gs.occupancy.shape)}", library_ms=None)
+    cast.update(kernel_times(lambda: voxel_cast(*args), "voxel_cast"))
+    cast["plain_ms"], want = timed_output(lambda: voxel_cast_plain(*args), warmup=1)
+    cast["max_abs_err"] = outputs_err(f"K9 {cast['shape']}", voxel_cast(*args), want)
+    steps = march_steps(gs, o, d, n_steps)
+    cast["bound_ms"], cast["bound_by"] = cast_bound_ms(o.shape[0], gs.occupancy.numel(), steps)
+    log(f"K9 {cast['shape']}: {times_text(cast)}, voxel_cast_plain {cast['plain_ms']:.4f} ms, {steps} steps marched "
+        f"({steps / o.shape[0]:.1f} a ray), bound {cast['bound_ms']:.4f} ms ({cast['bound_by']}) = "
+        f"{cast['bound_ms'] / cast['ms']:.3f} of the time; hit/centre/colour bit-equal to the timed voxel_cast_plain call "
+        f"({card})")
+    return rows, cast
+
+
+def phase_coverage(dev, root: str, card: str) -> tuple:
+    from concurrent.futures import ThreadPoolExecutor
+
+    log(f"== phase 10: object to coverage dataset: a {OBJ_POINTS}-point object, {COVERAGE_VIEWS} coverage and "
+        f"2 x 100 novel views at {CAMERA.width}x{CAMERA.height}")
+    t_phase = time.perf_counter()
+    # the broken variants build while the path runs
+    pool = ThreadPoolExecutor(max_workers=3)
+    builds = {name: pool.submit(_build.edited, "splat", reps) for name, reps in SPLAT_BROKEN.items()}
+    builds["last hit"] = pool.submit(_build.edited, "voxel_cast", CAST_LAST_HIT)
+    ws = os.path.join(root, "coverage_ws")
+    cfg = Config(workspace=ws, model_path=os.path.join(ws, "models"), viewspace_path=os.path.join(ws, "viewspace"),
+                 name_of_pcd=OBJ_NAME, is_shape_net=True, camera=CAMERA, seed=0)
+    obj = os.path.join(ws, "mesh", "model_normalized.obj")
+    ply = os.path.join(cfg.model_path, "ShapeNet", OBJ_NAME + ".ply")
+    write_procedural_obj(obj)
+    log(native_loader_line())
+
+    splat.launches = 0
+    voxel_cast.launches = 0
+    stages = {}
+    t0 = time.perf_counter()
+    if not sample_and_voxelize(obj, ply, n_points=OBJ_POINTS, grid_resolution=OBJ_GRID):
+        raise SystemExit("sample_and_voxelize wrote nothing")
+    stages["sample_and_voxelize"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    scene = load_object(cfg, device=dev)
+    sync()
+    stages["load_object"] = time.perf_counter() - t
+    t = time.perf_counter()
+    top = scene.view_space.views[scene.view_space.top_view_id()]
+    hit, _, _ = precept(scene.gt_scene, camera_to_world(top[None], scene.object_center)[0], CAMERA)
+    sync()
+    stages["precept"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cov_json = get_coverage(scene, cfg, COVERAGE_VIEWS, device=dev)
+    stages["get_coverage"] = time.perf_counter() - t
+    t = time.perf_counter()
+    novel_jsons = generate_novel_sets(scene, cfg, device=dev)
+    stages["generate_novel_sets"] = time.perf_counter() - t
+    wall = time.perf_counter() - t0
+    launched = (splat.launches, voxel_cast.launches)
+    log(f"path: {wall:.2f} s (" + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()) + f"); "
+        f"K8 {launched[0]} launches, K9 {launched[1]}")
+    size_txt = open(os.path.join(cfg.gt_path, "size.txt")).read()
+    log(f"object: {len(scene.points)} points, size {scene.size:.6f} m (size.txt {size_txt}), voxel grid "
+        f"{tuple(scene.gt_scene.occupancy.shape)} at {cfg.ground_truth_resolution} m ({scene.gt_scene.full_voxels} "
+        f"voxels), top view precept hits {int(hit.sum())} pixels")
+    if not (scene.ok and cfg.size_min <= scene.size <= cfg.size_max and int(hit.sum()) > 0):
+        raise SystemExit("the object was rejected, sized out of range, or invisible to precept")
+    # the size test renders its 5 probe views in one launch a try; the
+    # coverage set and the two novel sets one launch each; precept one K9 launch
+    tries = launched[0] - 3
+    if tries < 1 or launched[1] != 1:
+        raise SystemExit(f"unexpected launch counts {launched}: 1 per size try + 3, and 1 K9")
+    mean_rate, min_rate = check_dataset_files(cfg, scene, cov_json, novel_jsons)
+    log(f"{tries} size tries; coverage frames' object pixel rate mean {mean_rate:.4f}, min {min_rate:.4f} "
+        f"(need mean > {cfg.object_pixel_rate})")
+    if not mean_rate > cfg.object_pixel_rate:
+        raise SystemExit("the coverage frames show too little of the object")
+
+    c2ws = camera_to_world(ViewSpace(load_view_space(cfg.viewspace_path, COVERAGE_VIEWS), scene.points,
+                                     cfg.view_space_radius).views, scene.object_center)
+    variants = {name: fut.result() for name, fut in builds.items()}
+    pool.shutdown()
+    pts, col, w2c = splat_check_inputs(scene, dev, c2ws)
+    check_splat(pts, col, w2c, {k: splat_mod.bind(variants[k]) for k in SPLAT_BROKEN})
+    del pts, col, w2c
+    check_cast(scene, c2ws[0], dev, cast_mod.bind(variants["last hit"]))
+
+    # the voxel field on the port-rendered coverage set, scored on the novel test set
+    ncfg = dataclasses.replace(VOXEL_CFG, n_steps=COVERAGE_STEPS)
+    t = time.perf_counter()
+    metrics = run(cov_json, test_transforms=novel_jsons[1], cfg=ncfg, seed=0, device=dev)
+    sync()
+    base = black_psnr(load_dataset(novel_jsons[1]))
+    log(f"voxel field, {COVERAGE_STEPS} steps on the {COVERAGE_VIEWS} coverage frames, scored on the 100 novel test "
+        f"frames: {time.perf_counter() - t:.2f} s, PSNR {metrics['PSNR']:.3f} dB, SSIM {metrics['SSIM']:.4f}; an "
+        f"all-black frame scores {base:.3f} dB (need >= {COVERAGE_PSNR_MARGIN_DB} dB above it)")
+    if not (math.isfinite(metrics["PSNR"]) and metrics["PSNR"] >= base + COVERAGE_PSNR_MARGIN_DB):
+        raise SystemExit("the field trained on the coverage set does not beat a black frame by the margin")
+
+    k8_rows, k9 = time_kernels_coverage(scene, dev, c2ws, card)
+    # the first get_coverage also wrote the view-space file; the profile is
+    # held against a second call, which only reads it
+    t = time.perf_counter()
+    get_coverage(scene, cfg, COVERAGE_VIEWS, device=dev, gt_path=os.path.join(ws, "timed"))
+    again_s = time.perf_counter() - t
+    log(f"get_coverage again, view-space file already written: {again_s:.3f} s")
+    calls = iter(range(1000))
+    profile_device(lambda: get_coverage(scene, cfg, COVERAGE_VIEWS, device=dev,
+                                        gt_path=os.path.join(ws, f"profiled_{next(calls)}")),
+                   f"one get_coverage ({COVERAGE_VIEWS} frames, PNG encoding included)", again_s,
+                   named=("splat_",))
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    head = k8_rows[1]  # the coverage set's shape
+    k_splat = dict(
+        name="splat", route="cuda", source="nerf_prv_tpu_torch/ops/csrc/splat.cu",
+        replaces="nerf_prv_tpu/scene/render.py:38",
+        note="XLA scatters in the JAX package (_splat_core, batched by _splat_batch_u8 at :90), not Pallas; "
+             "library_ms is scatter_reduce_ amin on the materialised splats, the z-buffer alone",
+        launches=launched[0], **{k: head[k] for k in
+                                 ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=head["shape"], shapes=k8_rows,
+    )
+    k_cast = dict(
+        name="voxel_cast", route="cuda", source="nerf_prv_tpu_torch/ops/csrc/voxel_cast.cu",
+        replaces="nerf_prv_tpu/scene/voxel.py:170",
+        note="XLA ops in the JAX package (_cast_rays_grid), not Pallas",
+        launches=launched[1], **{k: k9[k] for k in
+                                 ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=k9["shape"], shapes=[k9],
+    )
+    return k_splat, k_cast
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -1807,9 +2253,11 @@ def main() -> int:
         phase_hash_step_vs_plain(dev, hparams, hcfg, source)
         del hparams
         phase_options(dev, root, train_json, vparams, vcfg, test_ds, card)
+        del vparams
+        k_splat, k_cast = phase_coverage(dev, root, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter]}))
+    print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,6 +76,32 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     return logs
 
 
+def edited(name: str, replacements: Sequence[tuple]) -> ctypes.CDLL:
+    """Build and load a copy of ``csrc/<name>.cu`` with each (old, new)
+    text replaced, with the same flags: an ablation, or a deliberately
+    broken variant that a check must catch.  Raises if an ``old`` text does
+    not occur exactly once."""
+    text = (CSRC / f"{name}.cu").read_text()
+    for old, new in replacements:
+        if text.count(old) != 1:
+            raise ValueError(f"{name}.cu: {old!r} occurs {text.count(old)} times, not once")
+        text = text.replace(old, new)
+    digest = hashlib.sha256(text.encode() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = BUILD_DIR / f"{name}-edited-{digest}.cu"
+    out = src.with_suffix(".so")
+    if not out.exists():
+        src.write_text(text)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"edited build of {name} failed: nvcc exit {proc.returncode}\n{proc.stdout}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it if needed."""

@@ -3,8 +3,9 @@
 Counterpart of ``nerf_prv_tpu/scene/ply.py`` (the port's own copy: that
 package's ``scene`` imports JAX).  Supports ascii and binary_little_endian,
 vertices with optional color/normal properties; everything else is
-ignored.  The reference's optional native loader has no counterpart yet:
-:func:`load_ply` is the Python parser.
+ignored.  :func:`load_ply` takes the native C++ parser
+(:mod:`nerf_prv_tpu_torch.runtime.native`) where ``csrc/libprv_runtime.so``
+is built, and the Python parser otherwise.
 """
 
 from __future__ import annotations
@@ -36,6 +37,17 @@ _DTYPES = {
 
 def load_ply(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """Returns (points (N,3) float64, colors (N,3) uint8 or None)."""
+    try:
+        from ..runtime import native
+
+        if native.available():
+            return native.load_ply(path)
+    except Exception:
+        pass
+    return _load_ply_py(path)
+
+
+def _load_ply_py(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     with open(path, "rb") as f:
         header = []
         while True:

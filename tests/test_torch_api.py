@@ -364,7 +364,10 @@ def test_port_imports_no_jax():
         " or m == 'nerf_prv_tpu' or m == 'optax' or m.startswith('optax.'))\n"
         "assert len(names) >= 20, names\n"
         "assert {p.__name__ + s for s in ('.nerf.voxelfield', '.nerf.train', '.ops.row_gather', '.ops.row_scatter_add',"
-        " '.ops.sorted_grad', '.ops.fused', '.nerf.extract', '.scene.ply')} <= set(names)\n"
+        " '.ops.sorted_grad', '.ops.fused', '.nerf.extract', '.scene.ply', '.core.camera', '.core.config',"
+        " '.viewspace.hemisphere', '.viewspace.novel', '.ops.splat', '.ops.voxel_cast', '.scene.render',"
+        " '.scene.voxel', '.scene.mesh_sampling', '.scene.object_setup', '.runtime.native',"
+        " '.pipeline.coverage')} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )

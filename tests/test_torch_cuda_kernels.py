@@ -356,3 +356,173 @@ def test_encode_fused_backward_agrees_with_autograd_through_plain_encode(cuda_de
             assert x.grad is None
     scale = float(grads[1].abs().max())
     assert scale > 0 and float((grads[0] - grads[1]).abs().max()) <= 2e-5 * scale
+
+
+# --- the point splat (K8) and the occupancy ray cast (K9) --------------------
+
+
+def _splat_scene(n, seed, dev, dup_every=0):
+    """(points, colours01) of a random blob 0.3 in front of the camera at
+    the identity pose, spread past the frame's edges; with ``dup_every``,
+    every such point is repeated at the end with another colour, so that
+    their splats tie exactly in depth."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.uniform(-0.25, 0.25, size=(n, 2)), rng.uniform(0.2, 0.4, size=(n, 1))], axis=1)
+    cols = rng.uniform(0, 1, size=(n, 3))
+    if dup_every:
+        pts = np.concatenate([pts, pts[::dup_every]])
+        cols = np.concatenate([cols, rng.uniform(0, 1, size=(len(pts) - n, 3))])
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)  # noqa: E731
+    return as_t(pts), as_t(cols)
+
+
+def _poses(frames, seed, dev):
+    """(frames, 3, 4) world-to-camera matrices: small rotations and shifts
+    about the identity, the first exactly the identity."""
+    rng = np.random.default_rng(seed)
+    out = np.tile(np.eye(3, 4), (frames, 1, 1))
+    for f in range(1, frames):
+        a = rng.normal(size=3) * 0.2  # Rodrigues: a rotation by |a| about a
+        k = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]]) / np.linalg.norm(a)
+        t = np.linalg.norm(a)
+        out[f, :, :3] = np.eye(3) + np.sin(t) * k + (1 - np.cos(t)) * k @ k
+        out[f, :, 3] = rng.normal(size=3) * 0.02
+    return torch.from_numpy(out.astype(np.float32)).to(dev)
+
+
+def _camera(size, model):
+    from nerf_prv_tpu_torch.core.config import CameraConfig
+
+    if size == "full":
+        return CameraConfig(model=model)
+    return CameraConfig(width=160, height=90, fx=150.0, fy=149.0, ppx=80.3, ppy=45.1, model=model)
+
+
+@pytest.mark.parametrize("u8", [True, False], ids=["u8", "f32"])
+@pytest.mark.parametrize("point_size", [1, 3, 4, 5])
+@pytest.mark.parametrize("model", [0, 2])
+@pytest.mark.parametrize("size,n,frames", [("small", 3000, 3), ("full", 200_003, 2)])
+def test_splat_kernel_equals_plain(cuda_device, size, n, frames, model, point_size, u8):
+    """Bit-equal to ``splat_plain`` (the kernel and the plain version round
+    every f32 operation the same way), exact depth ties included, with
+    points beyond every edge of the frame."""
+    from nerf_prv_tpu_torch.ops.splat import splat, splat_plain
+
+    pts, cols = _splat_scene(n, seed=point_size, dev=cuda_device, dup_every=7)
+    w2c = _poses(frames, seed=model, dev=cuda_device)
+    cam = _camera(size, model)
+    before = splat.launches
+    got = splat(pts, cols, w2c, cam, point_size, rgba_u8=u8)
+    torch.cuda.synchronize()
+    assert splat.launches == before + 1
+    want = splat_plain(pts, cols, w2c, cam, point_size, rgba_u8=u8)
+    if u8:
+        assert got.shape == (frames, cam.height, cam.width, 4) and got.dtype == torch.uint8
+        assert torch.equal(got, want)
+        covered = float((got[..., 3] > 0).float().mean())
+    else:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        covered = float(got[1].mean())
+    assert 0.02 < covered < 0.98  # the frame is neither empty nor full
+
+
+def test_splat_kernel_empty_cloud_is_white_and_transparent(cuda_device):
+    from nerf_prv_tpu_torch.ops.splat import splat
+
+    empty = torch.zeros((0, 3), device=cuda_device)
+    out = splat(empty, empty, _poses(2, 0, cuda_device), _camera("small", 0), 5)
+    torch.cuda.synchronize()
+    assert bool((out[..., :3] == 255).all()) and bool((out[..., 3] == 0).all())
+
+
+def _tie_and_round_scene(dev):
+    """Points whose projections land exactly on pixel centres + 0.5 (fx a
+    power of two, ppx on a half) and exact duplicates with other colours."""
+    from nerf_prv_tpu_torch.core.config import CameraConfig
+
+    cam = CameraConfig(width=96, height=64, fx=64.0, fy=64.0, ppx=40.5, ppy=30.5, model=0)
+    j = np.arange(-30, 30)
+    pts = np.stack([j / 64.0, (j % 17 - 8) / 64.0, np.full(j.shape, 1.0)], axis=1)
+    pts = np.concatenate([pts, pts])
+    cols = np.random.default_rng(0).uniform(0, 1, size=(len(pts), 3))
+    as_t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    return as_t(pts), as_t(cols), torch.eye(3, 4, device=dev)[None].contiguous(), cam
+
+
+SPLAT_BROKEN = {
+    "ties to the lowest index": [
+        ("if (z <= add(zmin, 1e-7f) && __ldcg(winner + p) < idx) atomicMax(winner + p, idx);",
+         "if (z <= add(zmin, 1e-7f)) atomicMax(winner + p, 2147483646 - idx);"),
+        ("  const int w = winner[t];\n  const unsigned char a",
+         "  const int w = winner[t] < 0 ? -1 : 2147483646 - winner[t];\n  const unsigned char a"),
+    ],
+    "roundf in place of round half to even": [
+        ("rintf(add(mul(x, c.fx), c.ppx))", "roundf(add(mul(x, c.fx), c.ppx))"),
+        ("rintf(add(mul(y, c.fy), c.ppy))", "roundf(add(mul(y, c.fy), c.ppy))"),
+    ],
+}
+
+
+@pytest.mark.parametrize("variant", list(SPLAT_BROKEN))
+def test_splat_broken_variants_are_caught(cuda_device, variant, monkeypatch):
+    """The comparison with the plain version must catch a kernel that gives
+    ties to the lowest point index, and one that rounds halves away from
+    zero; the tree's kernel passes the same scene."""
+    from nerf_prv_tpu_torch.ops import _build
+    from nerf_prv_tpu_torch.ops import splat as splat_mod
+
+    pts, cols, w2c, cam = _tie_and_round_scene(cuda_device)
+    want = splat_mod.splat_plain(pts, cols, w2c, cam, 1)
+    assert torch.equal(splat_mod.splat(pts, cols, w2c, cam, 1), want)
+    lib = splat_mod.bind(_build.edited("splat", SPLAT_BROKEN[variant]))
+    monkeypatch.setattr(splat_mod, "_lib", lambda: lib)
+    assert not torch.equal(splat_mod.splat(pts, cols, w2c, cam, 1), want)
+
+
+def _cast_inputs(n_rays, seed, dev, miss_share=0.3):
+    """A 40 x 30 x 20 grid of ~8% occupied voxels with colours, and rays
+    from outside it: most aimed at it, ``miss_share`` aimed away."""
+    rng = np.random.default_rng(seed)
+    occ = rng.uniform(size=(40, 30, 20)) < 0.08
+    col = rng.uniform(size=(40, 30, 20, 3))
+    origin = np.array([-0.04, -0.03, -0.02])
+    o = rng.normal(size=(n_rays, 3))
+    o = o / np.linalg.norm(o, axis=1, keepdims=True) * 0.2
+    d = -o + rng.normal(size=(n_rays, 3)) * 0.02
+    away = rng.uniform(size=n_rays) < miss_share
+    d[away] = -d[away]
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)  # noqa: E731
+    return torch.from_numpy(occ).to(dev), as_t(col), origin, as_t(o), as_t(d)
+
+
+@pytest.mark.parametrize("n_rays,n_steps", [(1, 10), (4099, 200), (65_536, 1000)])
+def test_voxel_cast_kernel_equals_plain(cuda_device, n_rays, n_steps):
+    """Hit flags, voxel centres and colours bit-equal to
+    ``voxel_cast_plain``, all-miss rays (step 0's clipped voxel) included."""
+    from nerf_prv_tpu_torch.ops.voxel_cast import voxel_cast, voxel_cast_plain
+
+    occ, col, origin, o, d = _cast_inputs(n_rays, seed=n_steps, dev=cuda_device)
+    before = voxel_cast.launches
+    got = voxel_cast(occ, col, origin, 0.002, o, d, 0.4, n_steps)
+    torch.cuda.synchronize()
+    assert voxel_cast.launches == before + 1
+    want = voxel_cast_plain(occ, col, origin, 0.002, o, d, 0.4, n_steps)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if n_rays > 1:
+        assert 0.1 < float(got[0].float().mean()) < 0.9  # hits and misses both
+
+
+def test_voxel_cast_last_hit_variant_is_caught(cuda_device, monkeypatch):
+    """A kernel that returns the last occupied voxel on the ray, not the
+    first, must disagree with the plain version."""
+    from nerf_prv_tpu_torch.ops import _build
+    from nerf_prv_tpu_torch.ops import voxel_cast as cast_mod
+
+    occ, col, origin, o, d = _cast_inputs(4099, seed=1, dev=cuda_device)
+    args = (occ, col, origin, 0.002, o, d, 0.4, 400)
+    want = cast_mod.voxel_cast_plain(*args)
+    lib = cast_mod.bind(_build.edited("voxel_cast", [("      found = true;\n      break;", "      found = true;")]))
+    monkeypatch.setattr(cast_mod, "_lib", lambda: lib)
+    got = cast_mod.voxel_cast(*args)
+    assert torch.equal(got[0], want[0]) and not torch.equal(got[1], want[1])
