@@ -76,6 +76,13 @@ the float64 sum within phase 2c's bound and all are timed in turns at phase
 2c's four shapes and on the four coarsest levels alone, beside the atomic
 adds each design rule issues (a host count) and each build's waves (the
 occupancy calculator's).
+
+    python3 chip_smoke.py --k8 old=build/k8/old.cu --k9 old=build/k9/old.cu
+
+does the same for the point-splat and the ray-cast kernels on phase 10's
+object: each build (the tree's C interface) is held bit-equal to
+``splat_plain`` or ``voxel_cast_plain``, and all are timed in turns at phase
+10's shapes.
 """
 
 from __future__ import annotations
@@ -240,20 +247,28 @@ CAST_ROWS = (320, 400)
 # H100 80GB HBM3 (700 W)
 COVERAGE_STEPS = 500
 COVERAGE_PSNR_MARGIN_DB = 10.0
-# the broken K8 and K9 variants (edited copies of the sources) the checks must catch
+# the broken K8 and K9 variants (edited copies of the sources) the checks must
+# catch, each with the point size (K8) at which it must show
 SPLAT_BROKEN = {
     "ties to the lowest index": [
-        ("if (z <= add(zmin, 1e-7f) && __ldcg(winner + p) < idx) atomicMax(winner + p, idx);",
-         "if (z <= add(zmin, 1e-7f)) atomicMax(winner + p, 2147483646 - idx);"),
-        ("  const int w = winner[t];\n  const unsigned char a",
-         "  const int w = winner[t] < 0 ? -1 : 2147483646 - winner[t];\n  const unsigned char a"),
+        ("if (q.z <= add(zmin, 1e-7f) && winner[p] < i) atomicMax(winner + p, i);",
+         "if (q.z <= add(zmin, 1e-7f)) atomicMax(winner + p, 2147483646 - i);"),
+        ("    const int w = winner[p];\n",
+         "    const int w = winner[p] < 0 ? -1 : 2147483646 - winner[p];\n"),
     ],
     "roundf in place of round half to even": [
         ("rintf(add(mul(x, c.fx), c.ppx))", "roundf(add(mul(x, c.fx), c.ppx))"),
         ("rintf(add(mul(y, c.fy), c.ppy))", "roundf(add(mul(y, c.fy), c.ppy))"),
     ],
+    "a splat binned only into the tile of its centre": [
+        ("  q.tu0 = q.u0 / kTile;\n  q.tu1 = q.u1 / kTile;\n", "  q.tu0 = q.tu1 = min(max(ui, q.u0), q.u1) / kTile;\n"),
+        ("  q.tv0 = q.v0 / kTile;\n  q.tv1 = q.v1 / kTile;\n", "  q.tv0 = q.tv1 = min(max(vi, q.v0), q.v1) / kTile;\n"),
+    ],
 }
-CAST_LAST_HIT = [("      found = true;\n      break;", "      found = true;")]
+CAST_BROKEN = {
+    "returns the last hit": [("      found = true;\n      break;", "      found = true;")],
+    "marches an interval one step too tight": [("constexpr int kMarginSteps = 2;", "constexpr int kMarginSteps = -1;")],
+}
 
 
 def log(*a):
@@ -561,16 +576,17 @@ def build_sources(specs: list, tag: str, bind) -> dict:
 
 
 @contextlib.contextmanager
-def wrapper_library(loader: str, lib):
-    """Send a hash wrapper's launches to another build: ``loader`` is the
-    wrapper module's function that returns the built library, ``_lib``
-    (``hash_encode``) or ``_lib_backward`` (``hash_encode_backward``)."""
-    saved = getattr(hash_encode_mod, loader)
-    setattr(hash_encode_mod, loader, lambda: lib)
+def wrapper_library(loader: str, lib, module=hash_encode_mod):
+    """Send a wrapper's launches to another build: ``loader`` is the wrapper
+    module's function that returns the built library, ``_lib``
+    (``hash_encode``, ``splat``, ``voxel_cast``) or ``_lib_backward``
+    (``hash_encode_backward``)."""
+    saved = getattr(module, loader)
+    setattr(module, loader, lambda: lib)
     try:
         yield
     finally:
-        setattr(hash_encode_mod, loader, saved)
+        setattr(module, loader, saved)
 
 
 def compare_k1(dev, specs: list, card: str):
@@ -915,8 +931,7 @@ def rays_per_s_line(ds, dt: float) -> str:
 
 _FAMILIES = (  # first match wins
     ("own kernels", ("hash_encode_kernel", "hash_encode_backward_kernel", "row_gather_kernel",
-                     "row_scatter_add_kernel", "splat_init", "splat_depth", "splat_winner", "splat_resolve",
-                     "voxel_cast_kernel")),
+                     "row_scatter_add_kernel", "splat_bin", "splat_scan", "splat_raster", "voxel_cast_kernel")),
     ("GEMMs", ("gemm", "nvjet", "cutlass", "cublas", "splitK")),
     ("Adam", ("multi_tensor_apply",)),
     ("copies and cats", ("CatArray", "copy_kernel", "Memcpy", "Memset")),
@@ -946,8 +961,8 @@ def profile_device(fn, label: str, wall_s: float, top: int = 20, tries: int = 3,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # (wrapper, kernels one of its launches runs): K8 runs four (init, depth,
-    # winner, resolve)
+    # (wrapper, kernels one of its launches runs): K8 runs four (count, scan,
+    # fill, raster)
     wrappers = ((hash_encode, 1), (hash_encode_backward, 1), (row_gather, 1), (row_scatter_add, 1), (splat, 4),
                 (voxel_cast, 1))
     for attempt in range(1, tries + 1):
@@ -1926,25 +1941,40 @@ def check_splat(pts, col, w2c, variants: dict) -> None:
         raise SystemExit("K8's f32 output disagrees with splat_plain")
     log("K8 f32 rgb + alpha, one frame, point size 5: bit-equal to splat_plain")
     for name, lib in variants.items():
-        saved = splat_mod._lib
-        splat_mod._lib = lambda lib=lib: lib
-        try:
+        with wrapper_library("_lib", lib, splat_mod):
             diff = [int((splat(pts, col, w2c, CAMERA, ps) != wants[ps]).any(-1).sum()) for ps in (5, 1)]
-        finally:
-            splat_mod._lib = saved
         log(f"  broken on purpose, K8 with {name}: {diff[0]} / {diff[1]} pixels differ at point size 5 / 1 -> "
             f"{'caught' if sum(diff) else 'NOT caught'}")
         if not sum(diff):
             raise SystemExit(f"the K8 check does not catch {name}")
 
 
-def check_cast(scene, c2w, dev, broken) -> None:
+def inside_rays(gs, n: int = 20_000) -> tuple:
+    """(origins, dirs) of up to ``n`` rays that start inside the grid's box:
+    each 0.6 of a voxel into an occupied voxel along +x, heading +x, so that
+    step 0 (a quarter voxel on at 2 steps a voxel) samples that voxel and
+    step 1 the next one.  A march that skips a ray's first in-grid step
+    reports another voxel for every one of them."""
+    idx = torch.nonzero(gs.occupancy)
+    idx = idx[torch.linspace(0, len(idx) - 1, min(len(idx), n), device=idx.device).long()]
+    go = torch.tensor([float(np.float32(v)) for v in gs.origin], device=idx.device)
+    shift = torch.tensor([0.6, 0.5, 0.5], device=idx.device)
+    o = ((idx.float() + shift) * float(np.float32(gs.resolution)) + go).contiguous()
+    d = torch.tensor([[1.0, 0.0, 0.0]], device=idx.device).expand_as(o).contiguous()
+    return o, d
+
+
+def check_cast(scene, c2w, dev, variants: dict) -> None:
     """K9 through ``precept`` on one full view against ``voxel_cast_plain``
-    on the rays of rows CAST_ROWS (hit flags, centres, colours bit-equal),
-    and the broken last-hit variant, which must differ."""
+    on the rays of rows CAST_ROWS, and on rays that start inside occupied
+    voxels (``inside_rays``; hit flags, centres, colours bit-equal); then
+    each broken variant, which must differ somewhere: in the full view from
+    the kernel (whose full view is held bit-equal to ``voxel_cast_plain``
+    where K9 is timed), or on the inside rays."""
     lo, hi = (r * CAMERA.width for r in CAST_ROWS)
     o, d = precept_rays(c2w, CAMERA, dev)
-    got = [t.reshape(CAMERA.height * CAMERA.width, -1)[lo:hi] for t in precept(scene.gt_scene, c2w, CAMERA)]
+    full = precept(scene.gt_scene, c2w, CAMERA)
+    got = [t.reshape(CAMERA.height * CAMERA.width, -1)[lo:hi] for t in full]
     gs = scene.gt_scene
     n_steps = int(np.ceil(1.0 / gs.resolution * 2.0))
     want = voxel_cast_plain(gs.occupancy, gs.color_grid, gs.origin, gs.resolution, o[lo:hi].contiguous(),
@@ -1955,17 +1985,26 @@ def check_cast(scene, c2w, dev, broken) -> None:
         f"({hi - lo} rays, {n_steps} steps, {share:.4f} hit): hit/centre/colour bit-equal to voxel_cast_plain: {same}")
     if not all(same) or not 0.0 < share < 1.0:
         raise SystemExit("K9 disagrees with voxel_cast_plain, or the rays compared are all hits or all misses")
-    saved = cast_mod._lib
-    cast_mod._lib = lambda: broken
-    try:
-        bad = precept(scene.gt_scene, c2w, CAMERA)[1].reshape(-1, 3)[lo:hi]
-    finally:
-        cast_mod._lib = saved
-    moved = int((bad != want[1]).any(-1).sum())
-    log(f"  broken on purpose, K9 that returns the last hit: {moved} rays' centres differ -> "
-        f"{'caught' if moved else 'NOT caught'}")
-    if not moved:
-        raise SystemExit("the K9 check does not catch a last-hit march")
+    o_in, d_in = inside_rays(gs)
+    args_in = (gs.occupancy, gs.color_grid, gs.origin, gs.resolution, o_in, d_in, 1.0, n_steps)
+    want_in = voxel_cast_plain(*args_in)
+    same_in = [torch.equal(a, b) for a, b in zip(voxel_cast(*args_in), want_in)]
+    log(f"K9 on {len(o_in)} rays from inside occupied voxels: hit/centre/colour bit-equal to voxel_cast_plain: "
+        f"{same_in}")
+    if not all(same_in):
+        raise SystemExit("K9 disagrees with voxel_cast_plain on rays from inside the grid")
+    for name, lib in variants.items():
+        with wrapper_library("_lib", lib, cast_mod):
+            bad = precept(scene.gt_scene, c2w, CAMERA)
+            bad_in = voxel_cast(*args_in)
+        moved = int(((bad[0] != full[0]) | (bad[1] != full[1]).any(-1)).sum())
+        in_rows = int((bad[1].reshape(-1, 3)[lo:hi] != want[1]).any(-1).sum())
+        moved_in = int(((bad_in[0] != want_in[0]) | (bad_in[1] != want_in[1]).any(-1)).sum())
+        log(f"  broken on purpose, K9 that {name}: {moved} of {full[0].numel()} rays' hits or centres differ from "
+            f"the kernel's ({in_rows} in rows {CAST_ROWS[0]}-{CAST_ROWS[1]} from voxel_cast_plain's), {moved_in} of "
+            f"the {len(o_in)} inside rays' -> {'caught' if moved + moved_in else 'NOT caught'}")
+        if not moved + moved_in:
+            raise SystemExit(f"the K9 check does not catch a kernel that {name}")
 
 
 def splat_masks(pts, w2c, ps: int):
@@ -1993,29 +2032,74 @@ def splat_bound_ms(n_points: int, frames: int, u8: bool, ps: int, n_splats: int)
     frames written once over HBM, or the arithmetic at the f32 peak: per
     (point, frame) the transform (9 multiplies, 9 adds), 2 divides, the
     distortion (27 operations at models 1-2) and the pixel (2 multiply-adds,
-    2 roundings, 6 tests), twice (the two passes recompute it); per splat
-    one depth test in each pass."""
+    2 roundings, 6 tests), once; per splat a depth test and a winner test."""
     out = frames * CAMERA.width * CAMERA.height * (4 if u8 else 16)
     bytes_moved = n_points * 24 + frames * 48 + out
-    ops = 2 * n_points * frames * (18 + 2 + 27 + 12) + 2 * n_splats
+    ops = n_points * frames * (18 + 2 + 27 + 12) + 2 * n_splats
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def march_steps(gs, o, d, n_steps: int) -> int:
-    """Steps the rays (o, d) take through the scene's grid up to and
-    including their first hit (all ``n_steps`` for a miss), by the plain
-    march: the work K9 does on this run's data."""
-    return sum(int(torch.where(hit, first + 1, n_steps).sum()) for hit, first, _ in cast_mod.march_chunks(
-        gs.occupancy, gs.origin, gs.resolution, o, d, 1.0, n_steps))
+def bin_stats(pts, w2c, ps: int, tile: int) -> str:
+    """K8's bins on these inputs by its binning's plain mirror: the largest
+    and the mean bin, and the entries against the capacity sized from shapes."""
+    bins = splat_mod.bin_counts_plain(pts, w2c, CAMERA, ps, tile)
+    full = bins[bins > 0].float()
+    cap = w2c.shape[0] * splat_mod.bin_capacity(len(pts), ps, tile)
+    return (f"{tile}x{tile}-pixel tiles: {bins.numel()} bins, largest {int(bins.max())}, mean "
+            f"{float(bins.float().mean()):.1f}, mean of the {full.numel()} non-empty {float(full.mean()):.1f}; "
+            f"{int(bins.sum())} entries in a capacity of {cap}")
+
+
+def splat_memory(pts, col, w2c, frames: int, ps: int) -> str:
+    """K8's scratch for one u8 call at ``frames`` frames (bins, counts and
+    cursors, from the shapes, as the wrapper sizes them) and the peak device
+    memory the call adds, output included.  The frames cycle through
+    ``w2c``: the scratch depends on the shapes alone."""
+    m = w2c[torch.arange(frames, device=w2c.device) % w2c.shape[0]].contiguous()
+    tile = splat_mod._lib().splat_tile_side()
+    tiles = -(-CAMERA.width // tile) * -(-CAMERA.height // tile)
+    scratch = frames * (splat_mod.bin_capacity(len(pts), ps, tile) * 16 + tiles * 12)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = splat(pts, col, m, CAMERA, ps, rgba_u8=True)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    return (f"F={frames} u8: scratch {scratch / 1e6:.1f} MB from the shapes, output {out.numel() / 1e6:.1f} MB, "
+            f"peak device memory the call adds {peak / 1e6:.1f} MB")
+
+
+def cast_steps(gs, o, d, n_steps: int) -> dict:
+    """Steps of the rays (o, d) through the scene's grid, by the plain march:
+    ``to_hit``, every step up to and including the first hit (all
+    ``n_steps`` for a miss), what a march of every step takes; ``needed``,
+    each ray's step 0 (whose clipped voxel a miss reports) and its later
+    steps whose sample lies inside the grid, up to the hit: the work the
+    function needs, which K9's bound counts; ``marched``, step 0 and the
+    steps of ``step_interval`` (the kernel's interval, mirrored on the
+    host) up to the hit: what the kernel should take, counted here, not on
+    the card."""
+    lo, hi = cast_mod.step_interval(tuple(gs.occupancy.shape), gs.origin, gs.resolution, o, d, 1.0, n_steps)
+    steps = torch.arange(n_steps, device=o.device)
+    out, r0 = dict(to_hit=0, needed=0, marched=0), 0
+    for hit, first, _, inside in cast_mod.march_chunks(gs.occupancy, gs.origin, gs.resolution, o, d, 1.0, n_steps):
+        r = hit.shape[0]
+        last = torch.where(hit, first, n_steps - 1)
+        out["to_hit"] += int((last + 1).sum())
+        out["needed"] += r + int((inside & (steps <= last[:, None]))[:, 1:].sum())
+        out["marched"] += r + int(torch.clamp(torch.minimum(hi[r0:r0 + r], last) - lo[r0:r0 + r] + 1, min=0).sum())
+        r0 += r
+    return out
 
 
 def cast_bound_ms(n_rays: int, grid_cells: int, steps: int) -> tuple:
     """Least time for one K9 call: rays read and hit, centre and colour
     written once, the occupancy grid and each ray's voxel colour read once,
-    over HBM; or the march at the f32 peak, 20 operations a step (the
-    sample's t, then per axis a multiply, two adds, a divide and a floor,
-    and the bounds tests)."""
+    over HBM; or the ``steps`` the function needs (``cast_steps``'s
+    ``needed``) at the f32 peak, 20 operations a step (the sample's t, then
+    per axis a multiply, two adds, a divide and a floor, and the bounds
+    tests)."""
     bytes_moved = n_rays * (24 + 1 + 12 + 12 + 12) + grid_cells
     ops = 20 * steps + 9 * n_rays
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
@@ -2072,8 +2156,11 @@ def time_kernels_coverage(scene, dev, c2ws, card) -> tuple:
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = {row['bound_ms'] / row['ms']:.3f} of the time; "
             f"{flat.numel() / frames:.0f} in-frame splats a frame, each a depth test and a winner test; "
             f"bit-equal to the timed splat_plain call ({card})")
+        log(f"K8 {label}: {bin_stats(pts, m, ps, splat_mod._lib().splat_tile_side())}")
         rows.append(row)
         del flat, depth, zero
+    for frames in (COVERAGE_VIEWS, 100):
+        log(f"K8 memory, N={len(pts)}, ps={ps}: {splat_memory(pts, col, w2c, frames, ps)} ({card})")
     gs = scene.gt_scene
     o, d = precept_rays(c2ws[0], CAMERA, dev)
     n_steps = int(np.ceil(1.0 / gs.resolution * 2.0))
@@ -2082,13 +2169,164 @@ def time_kernels_coverage(scene, dev, c2ws, card) -> tuple:
     cast.update(kernel_times(lambda: voxel_cast(*args), "voxel_cast"))
     cast["plain_ms"], want = timed_output(lambda: voxel_cast_plain(*args), warmup=1)
     cast["max_abs_err"] = outputs_err(f"K9 {cast['shape']}", voxel_cast(*args), want)
-    steps = march_steps(gs, o, d, n_steps)
-    cast["bound_ms"], cast["bound_by"] = cast_bound_ms(o.shape[0], gs.occupancy.numel(), steps)
-    log(f"K9 {cast['shape']}: {times_text(cast)}, voxel_cast_plain {cast['plain_ms']:.4f} ms, {steps} steps marched "
-        f"({steps / o.shape[0]:.1f} a ray), bound {cast['bound_ms']:.4f} ms ({cast['bound_by']}) = "
+    steps = cast_steps(gs, o, d, n_steps)
+    cast["bound_ms"], cast["bound_by"] = cast_bound_ms(o.shape[0], gs.occupancy.numel(), steps["needed"])
+    log(f"K9 {cast['shape']}: {times_text(cast)}, voxel_cast_plain {cast['plain_ms']:.4f} ms; steps: "
+        f"{steps['needed']} needed (step 0 and the in-grid steps up to the hit, {steps['needed'] / o.shape[0]:.1f} a "
+        f"ray), {steps['marched']} in the kernel's interval by its host mirror, {steps['to_hit']} by a march of every "
+        f"step to the hit "
+        f"(bound on that count {cast_bound_ms(o.shape[0], gs.occupancy.numel(), steps['to_hit'])[0]:.4f} ms); "
+        f"bound {cast['bound_ms']:.4f} ms ({cast['bound_by']}) = "
         f"{cast['bound_ms'] / cast['ms']:.3f} of the time; hit/centre/colour bit-equal to the timed voxel_cast_plain call "
         f"({card})")
     return rows, cast
+
+
+def coverage_config(root: str) -> tuple:
+    """Phase 10's pipeline config under ``root``, the procedural OBJ's path
+    and the PLY its sampling writes."""
+    ws = os.path.join(root, "coverage_ws")
+    cfg = Config(workspace=ws, model_path=os.path.join(ws, "models"), viewspace_path=os.path.join(ws, "viewspace"),
+                 name_of_pcd=OBJ_NAME, is_shape_net=True, camera=CAMERA, seed=0)
+    obj = os.path.join(ws, "mesh", "model_normalized.obj")
+    return cfg, obj, os.path.join(cfg.model_path, "ShapeNet", OBJ_NAME + ".ply")
+
+
+def coverage_object(dev, root: str) -> tuple:
+    """Phase 10's object on the card and the camera-to-world matrices of its
+    coverage set (as ``get_coverage`` makes them), without the dataset path
+    around them: the inputs of ``--k8`` and ``--k9``."""
+    from nerf_prv_tpu_torch.scene.object_setup import _ensure_viewspace
+
+    cfg, obj, ply = coverage_config(root)
+    write_procedural_obj(obj)
+    if not sample_and_voxelize(obj, ply, n_points=OBJ_POINTS, grid_resolution=OBJ_GRID):
+        raise SystemExit("sample_and_voxelize wrote nothing")
+    scene = load_object(cfg, device=dev)
+    unit = _ensure_viewspace(cfg.viewspace_path, COVERAGE_VIEWS, dev)
+    c2ws = camera_to_world(np.asarray(ViewSpace(unit, scene.points, cfg.view_space_radius).views),
+                           scene.object_center)
+    return scene, c2ws
+
+
+def k8_caller(lib):
+    """``call(pts, col, w2c, ps, u8)`` through the wrapper on one bound
+    build of K8 (the tree's C interface)."""
+    def call(pts, col, w2c, ps, u8):
+        with wrapper_library("_lib", lib, splat_mod):
+            return splat(pts, col, w2c, CAMERA, ps, rgba_u8=u8)
+    return call
+
+
+def in_turns(builds: dict, fn, iters: int) -> dict:
+    """Device time of ``fn(build)`` for every build, first to last and back."""
+    times = {name: [] for name in builds}
+    for name in list(builds) + list(reversed(builds)):
+        times[name].append(device_ms(lambda: fn(builds[name]), iters=iters))
+    return times
+
+
+def turns_text(times: dict) -> str:
+    return "; ".join(f"{name} {a:.4f} {b:.4f}" for name, (a, b) in times.items())
+
+
+def kernel_breakdown(fn, keys: tuple) -> str:
+    """Device time by kernel of one ``fn()`` under the profiler, for the
+    kernels and copies whose names hold one of ``keys``."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and any(k in e.name for k in keys):
+            short = re.search(r"[A-Za-z_]\w*(<\w+>)?(?=\()|Memset|Memcpy \w+", e.name)
+            name = short.group(0) if short else e.name[:40]
+            by_name[name] = by_name.get(name, 0.0) + e.device_time_total
+    return ", ".join(f"{name} {us:.1f} us" for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
+def compare_k8(dev, specs: list, card: str):
+    """Other builds of K8 against this tree's, in turns on one card.  Each is
+    held against ``splat_plain`` on phase 10's tie scene (4 frames, point
+    sizes 5 and 1, u8) and on the size test's frame (f32), and against the
+    tree's output on the 50-frame coverage set (whose agreement with
+    ``splat_plain`` the whole smoke checks); the run fails only where the
+    tree's kernel disagrees (an ablation may drop work on purpose).  Then
+    all are timed, first to last and back, at phase 10's two shapes, and
+    each one's kernels by the profiler."""
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        scene, c2ws = coverage_object(dev, root)
+    libs = {"tree": splat_mod._lib()}
+    libs.update(build_sources(specs, "k8", splat_mod.bind))
+    calls = {name: k8_caller(lib) for name, lib in libs.items()}
+    pts_t, col_t, w2c_t = splat_check_inputs(scene, dev, c2ws)
+    wants = {ps: splat_plain(pts_t, col_t, w2c_t, CAMERA, ps) for ps in (5, 1)}
+    pts = torch.from_numpy(np.asarray(scene.points, np.float32)).to(dev)
+    col = _colors01(scene.colors, len(pts), dev)
+    w2c = _world_to_camera(c2ws).to(dev)
+    want1 = splat_plain(pts, col, w2c[:1], CAMERA, 5, rgba_u8=False)
+    ref = calls["tree"](pts, col, w2c, 5, True)
+    for name, call in calls.items():
+        same = [torch.equal(call(pts_t, col_t, w2c_t, ps, True), wants[ps]) for ps in (5, 1)]
+        rgb, alpha = call(pts, col, w2c[:1], 5, False)
+        same += [torch.equal(rgb, want1[0]) and torch.equal(alpha, want1[1]),
+                 torch.equal(call(pts, col, w2c, 5, True), ref)]
+        log(f"K8 {name}: tie scene at point size 5 / 1, size-test frame f32, coverage set against the tree: {same}"
+            + ("" if all(same) else " WRONG"))
+        # another build may drop work on purpose (an ablation): only this tree's kernel has to be right
+        if name == "tree" and not all(same):
+            raise SystemExit("the tree's K8 disagrees with splat_plain")
+        log(f"K8 {name}, the coverage set: {bin_stats(pts, w2c, 5, libs[name].splat_tile_side())}")
+    del ref, wants
+    for frames, u8, iters in ((1, False, 50), (COVERAGE_VIEWS, True, 5)):
+        m = w2c[:frames].contiguous()
+        flat, _ = splat_masks(pts, m, 5)
+        bound, by = splat_bound_ms(len(pts), frames, u8, 5, flat.numel())
+        del flat
+        times = in_turns(calls, lambda call: call(pts, col, m, 5, u8), iters)
+        log(f"K8 F={frames} {'u8' if u8 else 'f32'}, N={len(pts)}, ps 5 (bound {bound:.4f} ms, {by}; {card}): "
+            + turns_text(times))
+        for name, call in calls.items():
+            log(f"  {name} by kernel: {kernel_breakdown(lambda: call(pts, col, m, 5, u8), ('splat_', 'Memset'))}")
+
+
+def compare_k9(dev, specs: list, card: str):
+    """Other builds of K9 (the tree's C interface) against this tree's, in
+    turns on one card: each held bit-equal to ``voxel_cast_plain`` on two
+    full views of phase 10's object, then all timed, first to last and back,
+    on both, beside the steps each view needs and the tree's kernel's
+    interval holds (``cast_steps``)."""
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        scene, c2ws = coverage_object(dev, root)
+    libs = {"tree": cast_mod._lib()}
+    libs.update(build_sources(specs, "k9", cast_mod.bind))
+    gs = scene.gt_scene
+    n_steps = int(np.ceil(1.0 / gs.resolution * 2.0))
+    for view in (0, 1):
+        o, d = precept_rays(c2ws[view], CAMERA, dev)
+        args = (gs.occupancy, gs.color_grid, gs.origin, gs.resolution, o, d, 1.0, n_steps)
+        want = voxel_cast_plain(*args)
+
+        def cast(lib):
+            with wrapper_library("_lib", lib, cast_mod):
+                return voxel_cast(*args)
+        for name, lib in libs.items():
+            if not all(torch.equal(a, b) for a, b in zip(cast(lib), want)):
+                raise SystemExit(f"K9 build {name} disagrees with voxel_cast_plain on view {view}")
+        times = in_turns(libs, cast, 50)
+        steps = cast_steps(gs, o, d, n_steps)
+        bound, by = cast_bound_ms(o.shape[0], gs.occupancy.numel(), steps["needed"])
+        log(f"K9 view {view}, {o.shape[0]} rays, grid {tuple(gs.occupancy.shape)}, {float(want[0].float().mean()):.4f} "
+            f"hit, every build bit-equal to voxel_cast_plain; steps needed {steps['needed']}, in the tree's kernel's "
+            f"interval by its host mirror {steps['marched']}, by a march of every step to the hit {steps['to_hit']} (bound {bound:.4f} ms, "
+            f"{by}; {card}): " + turns_text(times))
 
 
 def phase_coverage(dev, root: str, card: str) -> tuple:
@@ -2098,14 +2336,12 @@ def phase_coverage(dev, root: str, card: str) -> tuple:
         f"2 x 100 novel views at {CAMERA.width}x{CAMERA.height}")
     t_phase = time.perf_counter()
     # the broken variants build while the path runs
-    pool = ThreadPoolExecutor(max_workers=3)
-    builds = {name: pool.submit(_build.edited, "splat", reps) for name, reps in SPLAT_BROKEN.items()}
-    builds["last hit"] = pool.submit(_build.edited, "voxel_cast", CAST_LAST_HIT)
-    ws = os.path.join(root, "coverage_ws")
-    cfg = Config(workspace=ws, model_path=os.path.join(ws, "models"), viewspace_path=os.path.join(ws, "viewspace"),
-                 name_of_pcd=OBJ_NAME, is_shape_net=True, camera=CAMERA, seed=0)
-    obj = os.path.join(ws, "mesh", "model_normalized.obj")
-    ply = os.path.join(cfg.model_path, "ShapeNet", OBJ_NAME + ".ply")
+    broken = [("splat", name, reps) for name, reps in SPLAT_BROKEN.items()]
+    broken += [("voxel_cast", name, reps) for name, reps in CAST_BROKEN.items()]
+    pool = ThreadPoolExecutor(max_workers=len(broken))
+    builds = {(src, name): pool.submit(_build.edited, src, reps) for src, name, reps in broken}
+    cfg, obj, ply = coverage_config(root)
+    ws = cfg.workspace
     write_procedural_obj(obj)
     log(native_loader_line())
 
@@ -2157,9 +2393,9 @@ def phase_coverage(dev, root: str, card: str) -> tuple:
     variants = {name: fut.result() for name, fut in builds.items()}
     pool.shutdown()
     pts, col, w2c = splat_check_inputs(scene, dev, c2ws)
-    check_splat(pts, col, w2c, {k: splat_mod.bind(variants[k]) for k in SPLAT_BROKEN})
+    check_splat(pts, col, w2c, {k: splat_mod.bind(variants["splat", k]) for k in SPLAT_BROKEN})
     del pts, col, w2c
-    check_cast(scene, c2ws[0], dev, cast_mod.bind(variants["last hit"]))
+    check_cast(scene, c2ws[0], dev, {k: cast_mod.bind(variants["voxel_cast", k]) for k in CAST_BROKEN})
 
     # the voxel field on the port-rendered coverage set, scored on the novel test set
     ncfg = dataclasses.replace(VOXEL_CFG, n_steps=COVERAGE_STEPS)
@@ -2213,6 +2449,10 @@ def main() -> int:
                         help="only compare these builds of the hash-encode kernel with the tree's")
     parser.add_argument("--k1b", action="append", default=[], metavar="NAME=SOURCE.cu",
                         help="only compare these builds of the table-gradient kernel with the tree's")
+    parser.add_argument("--k8", action="append", default=[], metavar="NAME=SOURCE.cu",
+                        help="only compare these builds of the point-splat kernel with the tree's")
+    parser.add_argument("--k9", action="append", default=[], metavar="NAME=SOURCE.cu",
+                        help="only compare these builds of the occupancy ray-cast kernel with the tree's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2229,6 +2469,12 @@ def main() -> int:
         return 0
     if args.k1b:
         compare_k1b(dev, args.k1b, card)
+        return 0
+    if args.k8 or args.k9:
+        if args.k8:
+            compare_k8(dev, args.k8, card)
+        if args.k9:
+            compare_k9(dev, args.k9, card)
         return 0
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
         train_json = write_scene(root, dev, "train", N_TRAIN_FRAMES, turn=0.0)

@@ -10,17 +10,32 @@
 // nothing returns what the reference's argmax of an all-false row gives:
 // step 0's voxel, clipped into the grid.
 //
-// What bounds it on an H100 SXM: the operations of the march, about 20 f32
-// operations a step, for as many steps as each ray takes before its hit (up
-// to n_steps = 1,000 at the 2 mm grid and a 1 m range: ~2·10^10 operations
-// for a 1280x720 frame of misses).  The bytes are the rays in, the three
-// outputs, and the few-MB grid, which stays in L2.
+// What bounds it on an H100 SXM: a sample outside the grid's box cannot hit,
+// so the function needs step 0 of each ray and its steps inside the box up
+// to the hit: for a view of a 9 x 9 x 15 cm grid from 0.3 m, a few tens of
+// millions of steps at about 20 f32 operations each, which is less time
+// than the bytes take (the rays in; hit, centre and colour out).  Marching
+// every step to the hit (1,000 for a miss at the 2 mm grid and a 1 m range)
+// would cost ~30x the steps, each with three IEEE divisions.
 //
-// Design (simple and right first): one thread per ray; the loop ends at the
-// first hit, so the XLA version's 11 GB of positions never exist.  Each step
-// is written with __fmul_rn / __fadd_rn / __fdiv_rn in the reference's
-// order, so nvcc cannot contract it into FMAs, and the kernel agrees with
-// voxel_cast_plain bit for bit.
+// Design: one thread per ray.  Step 0 is sampled first, for the clipped
+// voxel a miss reports.  Then a slab test of the ray against the grid's box
+// gives a step interval [lo, hi] that holds every step whose f32 sample can
+// floor inside the grid, and only those steps are marched, to the first hit;
+// a ray that never meets the box marches no step.  The interval is computed
+// in double: the box is widened on each axis by 2^-20 of the magnitudes the
+// march's f32 sample adds up (16 times the rounding those adds and the
+// divide can make), and the interval by kMarginSteps steps at each end
+// (the f32 rounding of t is below 1e-4 of a step).  An axis the direction
+// does not move along (a zero component) takes its fixed coordinate from
+// step 0's own arithmetic.  A ray with a non-finite origin or normalised
+// direction (a zero direction normalises to NaN) marches no step: each of its
+// samples has a NaN or infinite coordinate, which floors outside the grid.
+// ops/voxel_cast.py::step_interval is the formula this implements, op for
+// op; the tests hold it against the steps the plain march finds inside.
+// Each marched step is written with __fmul_rn / __fadd_rn / __fdiv_rn in
+// the reference's order, so nvcc cannot contract it into FMAs, and the
+// kernel agrees with voxel_cast_plain bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,6 +43,10 @@
 namespace {
 
 constexpr int kBlock = 128;
+// steps added at each end of the interval; 1 already covers the rounding of t
+constexpr int kMarginSteps = 2;
+// the widening of the box per unit of the magnitudes the f32 sample adds up
+constexpr double kBoxSlack = 1.0 / (1 << 20);
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -38,6 +57,29 @@ struct Grid {
 };
 
 __device__ __forceinline__ int clampi(int v, int hi) { return v < 0 ? 0 : (v > hi ? hi : v); }
+
+// The voxel index along one axis of the sample at t: floor((o + d t - g) / res).
+__device__ __forceinline__ int voxel(float o, float d, float t, float g, float res) {
+  return static_cast<int>(floorf(__fdiv_rn(add(add(o, mul(d, t)), -g), res)));
+}
+
+// Narrow [t_lo, t_hi] to the t at which the ray's coordinate along one axis
+// lies within the widened box; false where no step can sample inside along it.
+__device__ __forceinline__ bool slab(float o, float d, float g, int dim, const Grid& gr, double t_end, float t0,
+                                     double& t_lo, double& t_hi) {
+  if (d == 0.0f) {  // the same coordinate at every step: step 0's decides
+    const int k = voxel(o, d, t0, g, gr.res);
+    return k >= 0 && k < dim;
+  }
+  const double res = gr.res, go = __dadd_rn(static_cast<double>(g), -static_cast<double>(o));
+  const double eps = __dmul_rn(kBoxSlack, __dadd_rn(__dadd_rn(__ddiv_rn(
+      __dadd_rn(__dadd_rn(fabs(static_cast<double>(o)), fabs(static_cast<double>(g))), t_end), res), dim), 1.0));
+  const double ta = __ddiv_rn(__dadd_rn(__dmul_rn(-eps, res), go), d);
+  const double tb = __ddiv_rn(__dadd_rn(__dmul_rn(__dadd_rn(dim, eps), res), go), d);
+  t_lo = fmax(t_lo, fmin(ta, tb));
+  t_hi = fmin(t_hi, fmax(ta, tb));
+  return true;
+}
 
 __global__ void __launch_bounds__(kBlock)
 voxel_cast_kernel(const uint8_t* __restrict__ occ, const float* __restrict__ col, Grid g,
@@ -51,19 +93,36 @@ voxel_cast_kernel(const uint8_t* __restrict__ occ, const float* __restrict__ col
   dx = __fdiv_rn(dx, norm);
   dy = __fdiv_rn(dy, norm);
   dz = __fdiv_rn(dz, norm);
-  int ci = 0, cj = 0, ck = 0;
-  bool found = false;
-  for (int s = 0; s < g.n_steps; ++s) {
-    const float t = mul(add(static_cast<float>(s), 0.5f), g.step);
-    const int i = static_cast<int>(floorf(__fdiv_rn(add(add(ox, mul(dx, t)), -g.ox), g.res)));
-    const int j = static_cast<int>(floorf(__fdiv_rn(add(add(oy, mul(dy, t)), -g.oy), g.res)));
-    const int k = static_cast<int>(floorf(__fdiv_rn(add(add(oz, mul(dz, t)), -g.oz), g.res)));
-    const bool inside = i >= 0 && i < g.d0 && j >= 0 && j < g.d1 && k >= 0 && k < g.d2;
-    if (s == 0) {  // a ray that hits nothing reports step 0's clipped voxel
-      ci = clampi(i, g.d0 - 1);
-      cj = clampi(j, g.d1 - 1);
-      ck = clampi(k, g.d2 - 1);
+  // a ray that hits nothing reports step 0's clipped voxel
+  const float t0 = mul(add(0.0f, 0.5f), g.step);
+  int ci = clampi(voxel(ox, dx, t0, g.ox, g.res), g.d0 - 1);
+  int cj = clampi(voxel(oy, dy, t0, g.oy, g.res), g.d1 - 1);
+  int ck = clampi(voxel(oz, dz, t0, g.oz, g.res), g.d2 - 1);
+  // the steps that can sample inside the grid
+  int lo = 0, hi = g.n_steps - 1;
+  if (!(isfinite(ox) && isfinite(oy) && isfinite(oz) && isfinite(dx) && isfinite(dy) && isfinite(dz))) {
+    hi = -1;
+  } else if (g.step > 0.0f) {
+    const double t_end = __dmul_rn(static_cast<double>(g.n_steps), static_cast<double>(g.step));
+    double t_lo = 0.0, t_hi = t_end;
+    const bool meets = slab(ox, dx, g.ox, g.d0, g, t_end, t0, t_lo, t_hi) &&
+                       slab(oy, dy, g.oy, g.d1, g, t_end, t0, t_lo, t_hi) &&
+                       slab(oz, dz, g.oz, g.d2, g, t_end, t0, t_lo, t_hi) && t_lo <= t_hi;
+    if (!meets) {
+      hi = -1;
+    } else {
+      const double step = g.step;
+      lo = static_cast<int>(fmax(ceil(__dadd_rn(__ddiv_rn(t_lo, step), -0.5)) - kMarginSteps, 0.0));
+      hi = static_cast<int>(fmin(floor(__dadd_rn(__ddiv_rn(t_hi, step), -0.5)) + kMarginSteps, g.n_steps - 1.0));
     }
+  }
+  bool found = false;
+  for (int s = lo; s <= hi; ++s) {
+    const float t = mul(add(static_cast<float>(s), 0.5f), g.step);
+    const int i = voxel(ox, dx, t, g.ox, g.res);
+    const int j = voxel(oy, dy, t, g.oy, g.res);
+    const int k = voxel(oz, dz, t, g.oz, g.res);
+    const bool inside = i >= 0 && i < g.d0 && j >= 0 && j < g.d1 && k >= 0 && k < g.d2;
     if (inside && __ldg(occ + (static_cast<int64_t>(i) * g.d1 + j) * g.d2 + k)) {
       ci = i;
       cj = j;

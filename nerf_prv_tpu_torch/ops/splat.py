@@ -15,6 +15,9 @@ updates in order and the last writer (the highest point index) wins.  The
 pixel grid is the reference's too: pixel i holds projections in
 [i - 0.5, i + 0.5), centred at i, not at i + 0.5 as the NeRF's rays assume.
 
+:func:`bin_counts_plain` is the kernel's binning of splats by screen tile,
+and :func:`bin_capacity` the size of its bins, taken from the shapes alone.
+
 :func:`splat` takes the plain version only for tensors on the CPU.  For
 CUDA tensors it launches the kernel or raises.
 """
@@ -41,11 +44,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # points, colors, w2c
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, frames, width, height
             ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),  # point size, model, intr
-            ctypes.c_void_p, ctypes.c_void_p,  # zbuf, winner
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # counts, cursors, bins, capacity
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # rgba, alpha, out_u8
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
+        lib.splat_tile_side.argtypes = []
+        lib.splat_tile_side.restype = ctypes.c_int
         lib.splat_error_string.argtypes = [ctypes.c_int]
         lib.splat_error_string.restype = ctypes.c_char_p
     return lib
@@ -96,6 +101,45 @@ def _frame_projection(points, m, camera, point_size):
     return uf, vf, z, valid
 
 
+def tiles_per_axis(point_size: int, tile: int) -> int:
+    """The most tiles of side ``tile`` that ``point_size`` consecutive
+    pixels can touch: ceil((point_size - 1) / tile) + 1."""
+    return (int(point_size) - 2) // int(tile) + 2
+
+
+def bin_capacity(n: int, point_size: int, tile: int) -> int:
+    """Entries that one frame's bins can need: every point in every tile its
+    square can touch.  The kernel's bins are sized from this (never from a
+    count read back from the card)."""
+    return int(n) * tiles_per_axis(point_size, tile) ** 2
+
+
+def bin_counts_plain(points, w2c, camera, point_size: int, tile: int) -> torch.Tensor:
+    """The kernel's binning in PyTorch: (F, tiles_y, tiles_x) int64 entries
+    of every (frame, tile) bin, a point counted once in every tile that the
+    in-frame pixels of its square touch."""
+    width, height, ps, tile = int(camera.width), int(camera.height), int(point_size), int(tile)
+    tiles_x, tiles_y = -(-width // tile), -(-height // tile)
+    half = ps // 2
+    out = []
+    for m in w2c:
+        uf, vf, _, valid = _frame_projection(points, m, camera, ps)
+        ui = torch.where(valid, uf, torch.zeros_like(uf)).to(torch.int64)
+        vi = torch.where(valid, vf, torch.zeros_like(vf)).to(torch.int64)
+        u0, u1 = (ui - half).clamp(min=0), (ui - half + ps - 1).clamp(max=width - 1)
+        v0, v1 = (vi - half).clamp(min=0), (vi - half + ps - 1).clamp(max=height - 1)
+        ok = valid & (u0 <= u1) & (v0 <= v1)
+        tu0, tu1, tv0, tv1 = (t[ok] // tile for t in (u0, u1, v0, v1))
+        # +1 on each point's rectangle of tiles, as a 2-D difference array
+        diff = torch.zeros((tiles_y + 1) * (tiles_x + 1), dtype=torch.int64, device=points.device)
+        one = torch.ones_like(tu0)
+        for v, u, sign in ((tv0, tu0, 1), (tv0, tu1 + 1, -1), (tv1 + 1, tu0, -1), (tv1 + 1, tu1 + 1, 1)):
+            diff.index_add_(0, v * (tiles_x + 1) + u, sign * one)
+        counts = diff.reshape(tiles_y + 1, tiles_x + 1).cumsum(0).cumsum(1)
+        out.append(counts[:tiles_y, :tiles_x])
+    return torch.stack(out)
+
+
 def splat_plain(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = True):
     """The same function in PyTorch, frame by frame: ``scatter_reduce_``
     "amin" on the depth, then "amax" on the winners' point indices, then a
@@ -111,6 +155,7 @@ def splat_plain(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = 
     du, dv = du.reshape(-1), dv.reshape(-1)
     k = ps * ps
     index = torch.arange(points.shape[0], device=dev).repeat_interleave(k)
+    white_last = torch.cat([colors01, torch.ones((1, 3), dtype=torch.float32, device=dev)])
     rgbs, alphas = [], []
     for m in w2c:
         uf, vf, z, valid = _frame_projection(points, m, camera, ps)
@@ -129,8 +174,7 @@ def splat_plain(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = 
         winner = torch.full((drop + 1,), -1, dtype=torch.int64, device=dev)
         winner.scatter_reduce_(0, torch.where(win, flat, torch.full_like(flat, drop)), index, "amax")
         winner = winner[:drop]
-        rgb = torch.where((winner >= 0)[:, None], colors01[winner.clamp(min=0)],
-                          torch.ones((), dtype=torch.float32, device=dev))
+        rgb = white_last[winner]  # winner -1: the white row
         rgbs.append(rgb.reshape(height, width, 3))
         alphas.append((zbuf[:drop] < float("inf")).to(torch.float32).reshape(height, width))
     rgb, alpha = torch.stack(rgbs), torch.stack(alphas)
@@ -152,8 +196,13 @@ def splat(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = True):
         raise ValueError(f"splat runs on cpu or cuda tensors; got {points.device}")
     dev = points.device
     frames, width, height = w2c.shape[0], int(camera.width), int(camera.height)
-    zbuf = torch.empty((frames, height, width), dtype=torch.int32, device=dev)
-    winner = torch.empty((frames, height, width), dtype=torch.int32, device=dev)
+    lib = _lib()
+    tile = lib.splat_tile_side()
+    n_tiles = -(-width // tile) * -(-height // tile)
+    capacity = bin_capacity(points.shape[0], point_size, tile)
+    counts = torch.empty((frames, n_tiles), dtype=torch.int32, device=dev)
+    cursors = torch.empty((frames, n_tiles), dtype=torch.int64, device=dev)
+    bins = torch.empty((frames * capacity, 4), dtype=torch.int32, device=dev)  # depth, index, corner
     if rgba_u8:
         rgba = torch.empty((frames, height, width, 4), dtype=torch.uint8, device=dev)
         alpha = None
@@ -161,13 +210,12 @@ def splat(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = True):
         rgba = torch.empty((frames, height, width, 3), dtype=torch.float32, device=dev)
         alpha = torch.empty((frames, height, width), dtype=torch.float32, device=dev)
     intr = (ctypes.c_float * 9)(*_intrinsics(camera))
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.splat_forward(
             points.data_ptr(), colors01.data_ptr(), w2c.data_ptr(), points.shape[0], frames,
             width, height, int(point_size), int(camera.model), intr,
-            zbuf.data_ptr(), winner.data_ptr(), rgba.data_ptr(),
+            counts.data_ptr(), cursors.data_ptr(), bins.data_ptr(), capacity, rgba.data_ptr(),
             alpha.data_ptr() if alpha is not None else None, int(rgba_u8), stream,
         )
     if rc != 0:

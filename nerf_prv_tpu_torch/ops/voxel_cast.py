@@ -24,6 +24,11 @@ from . import _build
 # rays per chunk of the plain version: it materialises every (ray, step)
 # sample, 1,000 steps x 3 floats a ray at the 2 mm grid
 PLAIN_CHUNK_RAYS = 1 << 12
+# the kernel's step interval (``step_interval``): steps added at each end,
+# and the widening of the grid's box per unit of the magnitudes the f32
+# sample adds up
+MARGIN_STEPS = 2
+BOX_SLACK = 2.0 ** -20
 
 
 def _lib() -> ctypes.CDLL:
@@ -73,7 +78,8 @@ def _check_args(occ, col, grid_origin, origins, dirs, n_steps) -> None:
 def march_chunks(occ, grid_origin, res, origins, dirs, max_range, n_steps, chunk: int = PLAIN_CHUNK_RAYS):
     """The reference's materialised march, ``chunk`` rays at a time, in the
     kernel's order of f32 operations: yields (any hit (r,), first hit step
-    (r,), the voxel of every step clipped into the grid (r, S, 3))."""
+    (r,), the voxel of every step clipped into the grid (r, S, 3), whether
+    each step's sample lies inside the grid (r, S))."""
     dev = occ.device
     go = torch.tensor([float(np.float32(v)) for v in grid_origin], dtype=torch.float32, device=dev)
     res = float(np.float32(res))
@@ -81,14 +87,61 @@ def march_chunks(occ, grid_origin, res, origins, dirs, max_range, n_steps, chunk
     ts = (torch.arange(int(n_steps), dtype=torch.float32, device=dev) + 0.5) * _step(max_range, n_steps)
     for lo in range(0, origins.shape[0], chunk):
         o, d = origins[lo:lo + chunk], dirs[lo:lo + chunk]
-        norm = torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])
-        d = d / norm[:, None]
+        d = d / _norm(d)[:, None]
         pos = o[:, None, :] + d[:, None, :] * ts[None, :, None]  # (r, S, 3)
         idx = torch.floor((pos - go) / res).to(torch.int64)
         inside = ((idx >= 0) & (idx < dims)).all(dim=-1)
         cidx = torch.minimum(torch.clamp(idx, min=0), dims - 1)
         hit = occ[cidx[..., 0], cidx[..., 1], cidx[..., 2]] & inside  # (r, S)
-        yield hit.any(dim=1), hit.to(torch.uint8).argmax(dim=1), cidx
+        yield hit.any(dim=1), hit.to(torch.uint8).argmax(dim=1), cidx, inside
+
+
+def _norm(d):
+    return torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])
+
+
+def step_interval(dims, grid_origin, res, origins, dirs, max_range, n_steps):
+    """The kernel's step interval, op for op: (lo (R,), hi (R,)) int64 such
+    that every step whose f32 sample floors inside the grid ``dims`` lies in
+    [lo, hi] (lo > hi: no step does).  A slab test, in float64, of each
+    normalised ray against the grid's box widened per axis by BOX_SLACK of
+    the magnitudes the f32 sample adds up, then MARGIN_STEPS more steps at
+    each end; an axis the ray does not move along takes step 0's voxel.
+    A ray with a non-finite origin or normalised direction gets no step:
+    its samples' NaN or infinite coordinates floor outside the grid."""
+    dev = origins.device
+    step = _step(max_range, n_steps)
+    res32 = float(np.float32(res))
+    go32 = [float(np.float32(v)) for v in grid_origin]
+    d = dirs / _norm(dirs)[:, None]
+    t0 = float(np.float32(0.5) * np.float32(step))
+    t_end = float(n_steps) * step
+    t_lo = torch.zeros(origins.shape[0], dtype=torch.float64, device=dev)
+    t_hi = torch.full_like(t_lo, t_end)
+    meets = torch.ones(origins.shape[0], dtype=torch.bool, device=dev)
+    for a in range(3):
+        o, da, dim = origins[:, a], d[:, a], int(dims[a])
+        flat = da == 0
+        k = torch.floor(((o + da * t0) - go32[a]) / res32)
+        meets &= ~flat | ((k >= 0) & (k < dim))
+        o64, d64 = o.double(), torch.where(flat, torch.ones_like(da), da).double()
+        gap = go32[a] - o64
+        eps = BOX_SLACK * (((o64.abs() + abs(go32[a])) + t_end) / res32 + dim + 1.0)
+        ta = ((-eps) * res32 + gap) / d64
+        tb = ((dim + eps) * res32 + gap) / d64
+        t_lo = torch.where(flat, t_lo, torch.maximum(t_lo, torch.minimum(ta, tb)))
+        t_hi = torch.where(flat, t_hi, torch.minimum(t_hi, torch.maximum(ta, tb)))
+    meets &= t_lo <= t_hi
+    lo = torch.clamp(torch.ceil(t_lo / step - 0.5) - MARGIN_STEPS, min=0.0)
+    hi = torch.clamp(torch.floor(t_hi / step - 0.5) + MARGIN_STEPS, max=n_steps - 1.0)
+    lo = torch.where(meets, lo, torch.zeros_like(lo)).to(torch.int64)
+    hi = torch.where(meets, hi, torch.full_like(hi, -1.0)).to(torch.int64)
+    if not step > 0:
+        lo, hi = torch.zeros_like(lo), torch.full_like(hi, int(n_steps) - 1)
+    finite = torch.isfinite(origins).all(dim=1) & torch.isfinite(d).all(dim=1)
+    lo = torch.where(finite, lo, torch.zeros_like(lo))
+    hi = torch.where(finite, hi, torch.full_like(hi, -1))
+    return lo, hi
 
 
 def voxel_cast_plain(occ, col, grid_origin, res, origins, dirs, max_range, n_steps,
@@ -100,7 +153,7 @@ def voxel_cast_plain(occ, col, grid_origin, res, origins, dirs, max_range, n_ste
     go = torch.tensor([float(np.float32(v)) for v in grid_origin], dtype=torch.float32, device=dev)
     res32 = float(np.float32(res))
     hits, poss, cols = [], [], []
-    for any_hit, first, cidx in march_chunks(occ, grid_origin, res, origins, dirs, max_range, n_steps, chunk):
+    for any_hit, first, cidx, _ in march_chunks(occ, grid_origin, res, origins, dirs, max_range, n_steps, chunk):
         hit_idx = cidx[torch.arange(cidx.shape[0], device=dev), first]
         hits.append(any_hit)
         poss.append((hit_idx.to(torch.float32) + 0.5) * res32 + go)

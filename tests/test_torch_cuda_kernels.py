@@ -18,6 +18,8 @@ from nerf_prv_tpu_torch.ops.hash_encode import hash_encode, hash_encode_backward
 from nerf_prv_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from nerf_prv_tpu_torch.ops.row_scatter_add import row_scatter_add, row_scatter_add_plain
 from nerf_prv_tpu_torch.ops.sorted_grad import _levelwise_indices_weights, table_grad_sorted
+from test_torch_kernel_mirrors import BIN_CAMERA, GRIDS, _border_cloud, _rays
+from test_torch_kernel_mirrors import _poses as _mirror_poses
 
 TOL = 1e-5  # f32 trilinear blend of table values in [-1, 1]; FMA vs mul+add
 
@@ -449,34 +451,116 @@ def _tie_and_round_scene(dev):
     return as_t(pts), as_t(cols), torch.eye(3, 4, device=dev)[None].contiguous(), cam
 
 
+def _border_scene(dev):
+    """Points on and around every tile border of a 200x120 frame and beyond
+    its edges, and random points at random depths (``_border_cloud``), in
+    random colours, at the identity pose."""
+    pts = _border_cloud(5, 16, seed=3).to(dev)
+    cols = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, size=(len(pts), 3)).astype(np.float32)).to(dev)
+    return pts, cols, torch.eye(3, 4, device=dev)[None].contiguous(), BIN_CAMERA
+
+
 SPLAT_BROKEN = {
     "ties to the lowest index": [
-        ("if (z <= add(zmin, 1e-7f) && __ldcg(winner + p) < idx) atomicMax(winner + p, idx);",
-         "if (z <= add(zmin, 1e-7f)) atomicMax(winner + p, 2147483646 - idx);"),
-        ("  const int w = winner[t];\n  const unsigned char a",
-         "  const int w = winner[t] < 0 ? -1 : 2147483646 - winner[t];\n  const unsigned char a"),
+        ("if (q.z <= add(zmin, 1e-7f) && winner[p] < i) atomicMax(winner + p, i);",
+         "if (q.z <= add(zmin, 1e-7f)) atomicMax(winner + p, 2147483646 - i);"),
+        ("    const int w = winner[p];\n",
+         "    const int w = winner[p] < 0 ? -1 : 2147483646 - winner[p];\n"),
     ],
     "roundf in place of round half to even": [
         ("rintf(add(mul(x, c.fx), c.ppx))", "roundf(add(mul(x, c.fx), c.ppx))"),
         ("rintf(add(mul(y, c.fy), c.ppy))", "roundf(add(mul(y, c.fy), c.ppy))"),
     ],
+    "a splat binned only into the tile of its centre": [
+        ("  q.tu0 = q.u0 / kTile;\n  q.tu1 = q.u1 / kTile;\n", "  q.tu0 = q.tu1 = min(max(ui, q.u0), q.u1) / kTile;\n"),
+        ("  q.tv0 = q.v0 / kTile;\n  q.tv1 = q.v1 / kTile;\n", "  q.tv0 = q.tv1 = min(max(vi, q.v0), q.v1) / kTile;\n"),
+    ],
+}
+# the scene and point size on which each broken variant must show
+SPLAT_BROKEN_SHOWN_ON = {
+    "ties to the lowest index": (_tie_and_round_scene, 1),
+    "roundf in place of round half to even": (_tie_and_round_scene, 1),
+    "a splat binned only into the tile of its centre": (_border_scene, 5),
 }
 
 
 @pytest.mark.parametrize("variant", list(SPLAT_BROKEN))
 def test_splat_broken_variants_are_caught(cuda_device, variant, monkeypatch):
     """The comparison with the plain version must catch a kernel that gives
-    ties to the lowest point index, and one that rounds halves away from
-    zero; the tree's kernel passes the same scene."""
+    ties to the lowest point index, one that rounds halves away from zero
+    (both on the tie scene at point size 1), and one that bins a splat only
+    into the tile of its centre (squares across tile borders at point size
+    5); the tree's kernel passes the same scenes."""
     from nerf_prv_tpu_torch.ops import _build
     from nerf_prv_tpu_torch.ops import splat as splat_mod
 
-    pts, cols, w2c, cam = _tie_and_round_scene(cuda_device)
-    want = splat_mod.splat_plain(pts, cols, w2c, cam, 1)
-    assert torch.equal(splat_mod.splat(pts, cols, w2c, cam, 1), want)
+    scene, ps = SPLAT_BROKEN_SHOWN_ON[variant]
+    pts, cols, w2c, cam = scene(cuda_device)
+    want = splat_mod.splat_plain(pts, cols, w2c, cam, ps)
+    assert torch.equal(splat_mod.splat(pts, cols, w2c, cam, ps), want)
     lib = splat_mod.bind(_build.edited("splat", SPLAT_BROKEN[variant]))
     monkeypatch.setattr(splat_mod, "_lib", lambda: lib)
-    assert not torch.equal(splat_mod.splat(pts, cols, w2c, cam, 1), want)
+    assert not torch.equal(splat_mod.splat(pts, cols, w2c, cam, ps), want)
+
+
+def _splat_edge_case(case, dev):
+    """(points, colours, w2c, camera, point size) of one case of the
+    binning: every point on one pixel (one bin holds them all, half of them
+    tied in depth); points on and around tile borders and corners; squares
+    of side 2, 4, 33 and 40 (wider than a tile); centres up to the point size
+    outside the frame; 100 frames; no points."""
+    rng = np.random.default_rng(len(case))
+    w2c = _mirror_poses(seed=len(case)).to(dev)
+    cam, ps = BIN_CAMERA, 5
+    if case == "one_pixel":
+        n = 50_000
+        z = np.where(np.arange(n) % 2 == 0, 1.0, rng.uniform(1.0, 2.0, n))
+        pts = np.stack([40 / 64.0 * z, 40 / 64.0 * z, z], axis=1)
+        w2c = w2c[:1]
+    elif case == "tile_borders":
+        pts = _border_cloud(ps, 16, seed=1).numpy()
+    elif case.startswith("ps"):
+        ps = int(case[2:])
+        pts = _border_cloud(ps, 32, seed=ps).numpy()
+    elif case == "beyond_edges":  # centres within ps outside the frame, four exactly on the limits
+        ps, n = 7, 4000
+        u = np.concatenate([rng.uniform(-ps, 0, n // 2), rng.uniform(cam.width, cam.width + ps, n // 2)])
+        v = rng.uniform(-ps, cam.height + ps, n)
+        z = rng.uniform(0.5, 2.0, n)
+        u[:4], v[:4], z[:4] = [-ps, -ps, cam.width + ps - 1, cam.width + ps], [-ps, cam.height + ps - 1, 3, 3], 1.0
+        pts = np.stack([u / 64.0 * z, v / 64.0 * z, z], axis=1)
+    elif case == "frames100":
+        pts, cols = _splat_scene(3000, seed=100, dev=dev)
+        return pts, cols, _poses(100, seed=100, dev=dev), _camera("small", 2), ps
+    else:  # empty
+        pts = np.zeros((0, 3))
+    cols = rng.uniform(0, 1, size=(len(pts), 3))
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)  # noqa: E731
+    return as_t(pts), as_t(cols), w2c.contiguous(), cam, ps
+
+
+@pytest.mark.parametrize("u8", [True, False], ids=["u8", "f32"])
+@pytest.mark.parametrize("case", ["one_pixel", "tile_borders", "ps2", "ps4", "ps33", "ps40", "beyond_edges",
+                                  "frames100", "empty"])
+def test_splat_kernel_equals_plain_on_binning_edge_cases(cuda_device, case, u8):
+    """Bit-equal to ``splat_plain`` where the binning by tile is most likely
+    to go wrong (``_splat_edge_case``)."""
+    from nerf_prv_tpu_torch.ops.splat import splat, splat_plain
+
+    pts, cols, w2c, cam, ps = _splat_edge_case(case, cuda_device)
+    before = splat.launches
+    got = splat(pts, cols, w2c, cam, ps, rgba_u8=u8)
+    torch.cuda.synchronize()
+    assert splat.launches == before + 1
+    want = splat_plain(pts, cols, w2c, cam, ps, rgba_u8=u8)
+    if u8:
+        assert got.shape == want.shape and torch.equal(got, want)
+        alpha = got[..., 3].float() / 255
+    else:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        alpha = got[1]
+    covered = float(alpha.mean())
+    assert covered == 0.0 if case == "empty" else 0.0 < covered <= 1.0
 
 
 def _cast_inputs(n_rays, seed, dev, miss_share=0.3):
@@ -513,6 +597,12 @@ def test_voxel_cast_kernel_equals_plain(cuda_device, n_rays, n_steps):
         assert 0.1 < float(got[0].float().mean()) < 0.9  # hits and misses both
 
 
+CAST_BROKEN = {
+    "returns the last hit": [("      found = true;\n      break;", "      found = true;")],
+    "marches an interval one step too tight": [("constexpr int kMarginSteps = 2;", "constexpr int kMarginSteps = -1;")],
+}
+
+
 def test_voxel_cast_last_hit_variant_is_caught(cuda_device, monkeypatch):
     """A kernel that returns the last occupied voxel on the ray, not the
     first, must disagree with the plain version."""
@@ -522,7 +612,57 @@ def test_voxel_cast_last_hit_variant_is_caught(cuda_device, monkeypatch):
     occ, col, origin, o, d = _cast_inputs(4099, seed=1, dev=cuda_device)
     args = (occ, col, origin, 0.002, o, d, 0.4, 400)
     want = cast_mod.voxel_cast_plain(*args)
-    lib = cast_mod.bind(_build.edited("voxel_cast", [("      found = true;\n      break;", "      found = true;")]))
+    lib = cast_mod.bind(_build.edited("voxel_cast", CAST_BROKEN["returns the last hit"]))
     monkeypatch.setattr(cast_mod, "_lib", lambda: lib)
     got = cast_mod.voxel_cast(*args)
     assert torch.equal(got[0], want[0]) and not torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kind", ["random", "inside_origin"])
+def test_voxel_cast_tight_interval_variant_is_caught(cuda_device, kind, monkeypatch):
+    """A kernel whose step interval is one step inside the exact in-grid
+    interval at each end misses hits on a ray's first in-grid step (and,
+    for rays from inside the box, on step 0): it must disagree with the
+    plain version, which the tree's kernel equals on the same rays."""
+    from nerf_prv_tpu_torch.ops import _build
+    from nerf_prv_tpu_torch.ops import voxel_cast as cast_mod
+
+    dims, corner, res, max_range, n_steps = GRIDS["test grid"]
+    rng = np.random.default_rng(2)
+    occ = torch.from_numpy(rng.uniform(size=dims) < 0.08).to(cuda_device)
+    col = torch.from_numpy(rng.uniform(size=(*dims, 3)).astype(np.float32)).to(cuda_device)
+    o, d = (t.to(cuda_device) for t in _rays(kind, GRIDS["test grid"], 4099, seed=2))
+    args = (occ, col, corner, res, o, d, max_range, n_steps)
+    want = cast_mod.voxel_cast_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(cast_mod.voxel_cast(*args), want))
+    lib = cast_mod.bind(_build.edited("voxel_cast", CAST_BROKEN["marches an interval one step too tight"]))
+    monkeypatch.setattr(cast_mod, "_lib", lambda: lib)
+    got = cast_mod.voxel_cast(*args)
+    assert not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+@pytest.mark.parametrize("kind", ["random", "inside_origin", "axis_parallel", "grazing", "zero_component",
+                                  "non_finite"])
+def test_voxel_cast_kernel_equals_plain_on_ray_kinds(cuda_device, kind, grid):
+    """Hit flags, centres and colours bit-equal to ``voxel_cast_plain`` on
+    the rays that test the kernel's step interval (``_rays``): random rays
+    (a quarter aimed away, never meeting the box), rays from inside the
+    box, axis-parallel and grazing rays, rays with zero direction
+    components, and non-finite rays (zero directions, NaN and infinite
+    coordinates, which march no step), on a grid of 8% occupied voxels."""
+    from nerf_prv_tpu_torch.ops.voxel_cast import voxel_cast, voxel_cast_plain
+
+    dims, corner, res, max_range, n_steps = GRIDS[grid]
+    rng = np.random.default_rng(len(kind))
+    occ = torch.from_numpy(rng.uniform(size=dims) < 0.08).to(cuda_device)
+    col = torch.from_numpy(rng.uniform(size=(*dims, 3)).astype(np.float32)).to(cuda_device)
+    o, d = (t.to(cuda_device) for t in _rays(kind, GRIDS[grid], 4099, seed=len(kind) + len(grid)))
+    args = (occ, col, corner, res, o.contiguous(), d.contiguous(), max_range, n_steps)
+    got = voxel_cast(*args)
+    torch.cuda.synchronize()
+    want = voxel_cast_plain(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if kind != "non_finite":
+        assert 0.0 < float(got[0].float().mean()) < 1.0
