@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 Phases:
 (1) build the six kernels from ``nerf_prv_tpu_torch/ops/csrc``, one nvcc
     process each, started together;
-(2) each kernel against its plain version at the paths' full shapes, timed
-    beside its bound and the library call for the same work:
+(2) each kernel against its plain version at the paths' full shapes (and
+    the row kernels at the batched trainer's, four grids read as one table),
+    timed beside its bound and the library call for the same work:
     ``hash_encode`` against ``hashgrid.encode`` per level, on uniform points
     and on the probe and march points of one served chunk, at three
     configs, and on one training batch's own warmup-march, tight-march and
@@ -55,7 +56,19 @@ Phases:
     variants that must fail; the voxel field trained on the port-rendered
     coverage set and scored on the novel test set; both kernels timed
     beside their bounds, each held bit-equal to the timed plain call, and
-    one ``get_coverage`` profiled.
+    one ``get_coverage`` profiled;
+(11) (a) four different objects (the sphere in four colour patterns, 12 and
+    3 x 16 frames) trained together through ``train_batch`` at full width
+    for the full 2,500 steps, each scored on its own 4 held-out frames,
+    with exactly one training's row launches for all four; tight steps of
+    one object and of four timed in turns, one batched step profiled;
+    (b) one batched step through the kernels against the four single-object
+    steps on the same rays and jitter, and a broken gather that drops the
+    object offset, which must fail; (c) two hash fields trained together
+    for 150 steps, K1 and K1b counted per object; (d) 3,000 PSNR curves fit
+    and labeled on the card against the CPU; (e) ``precompute_paths`` for
+    3..100 views on the port's view spaces, and the card's edge matrix
+    against the float64 scalar local path.
 Any failure exits non-zero.  The line before the last is the kernel table
 as JSON, the last line the device.  It imports nothing of JAX or of
 ``nerf_prv_tpu``.
@@ -109,7 +122,11 @@ from nerf_prv_tpu_torch.core.pose import camera_to_world  # noqa: E402
 from nerf_prv_tpu_torch.core.transforms import (  # noqa: E402
     add_frame, load_transforms, make_root, scaled_camera, unmap_pose, write_transforms,
 )
+from nerf_prv_tpu_torch.labeling import labels as labels_mod  # noqa: E402
+from nerf_prv_tpu_torch.labeling.labels import fit_objects  # noqa: E402
+from nerf_prv_tpu_torch.labeling.lognormal import fit_batch  # noqa: E402
 from nerf_prv_tpu_torch.nerf import api as api_mod  # noqa: E402
+from nerf_prv_tpu_torch.nerf import batch_train as batch_mod  # noqa: E402
 from nerf_prv_tpu_torch.nerf import render as render_mod  # noqa: E402
 from nerf_prv_tpu_torch.nerf import train as train_mod  # noqa: E402
 from nerf_prv_tpu_torch.nerf import voxelfield  # noqa: E402
@@ -134,13 +151,19 @@ from nerf_prv_tpu_torch.ops.sorted_grad import _levelwise_indices_weights, table
 from nerf_prv_tpu_torch.ops.splat import splat, splat_plain  # noqa: E402
 from nerf_prv_tpu_torch.ops.voxel_cast import voxel_cast, voxel_cast_plain  # noqa: E402
 from nerf_prv_tpu_torch.pipeline.coverage import generate_novel_sets, get_coverage  # noqa: E402
+from nerf_prv_tpu_torch.planning.local_path import (  # noqa: E402
+    CIRCLE_PATH, LINE_PATH, WRONG_PATH, local_path, pairwise_lengths,
+)
+from nerf_prv_tpu_torch.planning.tsp import precompute_paths  # noqa: E402
 from nerf_prv_tpu_torch.runtime import native  # noqa: E402
 from nerf_prv_tpu_torch.scene.mesh_sampling import sample_and_voxelize  # noqa: E402
 from nerf_prv_tpu_torch.scene.object_setup import load_object  # noqa: E402
 from nerf_prv_tpu_torch.scene.ply import load_ply  # noqa: E402
 from nerf_prv_tpu_torch.scene.render import _colors01, _world_to_camera, object_pixel_rate  # noqa: E402
 from nerf_prv_tpu_torch.scene.voxel import precept, precept_rays  # noqa: E402
-from nerf_prv_tpu_torch.viewspace.hemisphere import ViewSpace, load_view_space  # noqa: E402
+from nerf_prv_tpu_torch.viewspace.hemisphere import (  # noqa: E402
+    ViewSpace, generate_hemisphere, load_path_order, load_view_space, save_view_space,
+)
 
 # the hash-encode wrapper's module (the package exports the function under
 # the module's name, so ``import`` yields the function)
@@ -813,6 +836,29 @@ def phase_row_kernels(dev, source: BatchSource) -> tuple:
     log(f"one tight step's row launches: probe gather {gathers[1]['ms'] * 1e3:.1f} us + march gather "
         f"{gathers[0]['ms'] * 1e3:.1f} us + scatter-add {scatters[0]['ms'] * 1e3:.1f} us less its memset "
         f"{scatters[-1]['ms'] * 1e3:.1f} us = {tight_us:.1f} us")
+
+    # the batched trainer's shapes (phase 11): K grids read as one (K*g^3, 8F)
+    # table, each object's ray-ordered indices offset by k*g^3
+    n_obj = len(BATCH_FRAMES)
+    grid_k = (torch.rand((n_obj * n_rows, width), generator=g, device=dev) * 2.0 - 1.0).to(torch.bfloat16)
+
+    def batched(n_samples, midpoints=False):
+        return torch.cat([ray_ordered_indices(source, cfg, n_samples, seed=30 + i, midpoints=midpoints) + i * n_rows
+                          for i in range(n_obj)]).contiguous()
+
+    b_tight, b_probe = batched(cfg.n_samples), batched(cfg.train_coarse, midpoints=True)
+    b_warm = batched(cfg.train_warmup_samples)
+    gathers += [
+        check_gather(grid_k, b_tight, f"K={n_obj} tight-step march, ray-ordered"),
+        check_gather(grid_k, b_probe, f"K={n_obj} tight-step probe, ray-ordered"),
+        check_gather(grid_k, b_warm, f"K={n_obj} warmup-step march, ray-ordered"),
+    ]
+    scatters += [
+        check_scatter(b_tight, upd(b_tight.numel()), n_obj * n_rows,
+                      f"N={b_tight.numel()} K={n_obj} tight-step march, ray-ordered"),
+        check_scatter(b_warm, upd(b_warm.numel()), n_obj * n_rows,
+                      f"N={b_warm.numel()} K={n_obj} warmup march, ray-ordered"),
+    ]
     gather = dict(
         name="row_gather", route="cuda",
         source="nerf_prv_tpu_torch/ops/csrc/row_gather.cu",
@@ -842,9 +888,15 @@ def spiral_views(n: int, turn: float) -> np.ndarray:
     return np.stack([np.sqrt(1 - z * z) * np.cos(phi), np.sqrt(1 - z * z) * np.sin(phi), z], -1)
 
 
-def write_scene(root: str, dev, name: str, n_frames: int, turn: float) -> str:
-    """Hemisphere views of an analytic coloured sphere at the camera's full
-    size, written as ``<name>.json`` with RGBA PNGs."""
+def normal_colour(n: torch.Tensor) -> torch.Tensor:
+    """The analytic sphere's colour at unit normal ``n``."""
+    return n * 0.5 + 0.5
+
+
+def write_scene(root: str, dev, name: str, n_frames: int, turn: float, colour=normal_colour) -> str:
+    """Hemisphere views of an analytic sphere coloured by ``colour`` of its
+    unit normal, at the camera's full size, written as ``<name>.json`` with
+    RGBA PNGs."""
     from PIL import Image
 
     cam = CAMERA
@@ -870,7 +922,7 @@ def write_scene(root: str, dev, name: str, n_frames: int, turn: float) -> str:
         o = torch.as_tensor(origins[k], device=dev).expand_as(d)
         tmin, _, hit = ray_sphere(o, d, center=0.5, radius=0.3)
         p = o + d * tmin[:, None]
-        rgb = torch.clamp((p - 0.5) / 0.3 * 0.5 + 0.5, 0, 1) * hit[:, None]
+        rgb = torch.clamp(colour((p - 0.5) / 0.3), 0, 1) * hit[:, None]
         rgba = torch.cat([rgb, hit[:, None].float()], -1).reshape(cam.height, cam.width, 4)
         u8 = torch.round(rgba * 255).to(torch.uint8).cpu().numpy()
         Image.fromarray(u8, "RGBA").save(os.path.join(root, name, f"r_{k}.png"))
@@ -1045,10 +1097,9 @@ def expected_train_launches(cfg: NerfConfig) -> tuple:
     return n_warm + probes * (cfg.n_steps - n_warm), cfg.n_steps
 
 
-def time_steps(params, cfg: NerfConfig, source: BatchSource, n: int, seed: int) -> float:
-    """Mean wall ms of ``n`` optimizer steps at ``cfg`` on a copy of
-    ``params``, sampling as ``train`` does (host clock around a sync)."""
-    step = make_stepper(params, cfg, source, seed)
+def step_ms(step, n: int) -> float:
+    """Mean wall ms of ``n`` calls of ``step`` after 3 to warm up (host
+    clock around a sync)."""
     for _ in range(3):
         step()
     sync()
@@ -1057,6 +1108,12 @@ def time_steps(params, cfg: NerfConfig, source: BatchSource, n: int, seed: int) 
         step()
     sync()
     return (time.perf_counter() - t0) / n * 1e3
+
+
+def time_steps(params, cfg: NerfConfig, source: BatchSource, n: int, seed: int) -> float:
+    """Mean wall ms of ``n`` optimizer steps at ``cfg`` on a copy of
+    ``params``, sampling as ``train`` does (host clock around a sync)."""
+    return step_ms(make_stepper(params, cfg, source, seed), n)
 
 
 def make_stepper(params, cfg: NerfConfig, source: BatchSource, seed: int):
@@ -1181,7 +1238,7 @@ def phase_train(dev, root: str, train_json: str, test_json: str, source: BatchSo
         log("  the trace lost events: not compared")
     t_cast = time_ms(lambda: params["grid"].to(torch.bfloat16), iters=50)
     log(f"grid f32 -> bf16 cast (twice per tight step, once per render chunk): {t_cast:.4f} ms")
-    return params, cfg, test_ds
+    return params, cfg, test_ds, tight_ms
 
 
 @contextlib.contextmanager
@@ -2443,6 +2500,339 @@ def phase_coverage(dev, root: str, card: str) -> tuple:
     return k_splat, k_cast
 
 
+# --- phase 11: batched multi-object training, labeling and path planning -----
+
+# four different objects (bench.py's BATCH_OBJECTS = 4): the analytic sphere
+# in four colour patterns of its unit normal, the first with fewer training
+# frames than the others, so that the frame padding runs
+BATCH_PATTERNS = (
+    normal_colour,
+    lambda n: n[:, [1, 2, 0]] * 0.5 + 0.5,
+    lambda n: 0.5 - n * 0.5,
+    lambda n: n[:, [2, 0, 1]] ** 2,
+)
+BATCH_FRAMES = (12, 16, 16, 16)
+# the short batched hash run (its losses must fall, as phase 9's runs')
+BATCH_HASH_K = 2
+BATCH_HASH_STEPS = OPTION_STEPS
+# labeling at a dataset's size: SURVEY's ~3,000 ShapeNet objects on
+# Fit_ShapeNet's 24 view counts (labels.py:151), curves from known lognormal
+# parameters with 0.05 dB of noise on each sample
+FIT_B = 3000
+FIT_X = np.arange(3, 51, 2)
+FIT_NOISE = 0.05
+# card fit against CPU fit: the CPU tests' tolerances of the port against
+# the JAX package at this noise (tests/test_torch_labeling.py: curves
+# measured within 2.0e-3 dB, their differences within 4.2e-4)
+FIT_CURVE_TOL = 4e-3
+FIT_DIFF_TOL = 1e-3
+# planning: every view-space size the pipeline ships, on view spaces the
+# port generates (2 restarts x 200 steps each); the card's edge matrix
+# against the float64 scalar local path (float32 rounding, the CPU tests' 1e-5)
+PLAN_SIZES = range(3, 101)
+PLAN_RTOL = 1e-5
+
+
+def batched_stepper(params, cfg: NerfConfig, obj, seed: int):
+    """A closure that samples one batch for all K objects and takes one
+    batched ``train_step`` on a copy of ``params``."""
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    opt = train_mod.make_optimizer(p, cfg)
+    dev = obj.pixels.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def step():
+        batch = batch_mod.sample_objects(g, obj, cfg.train_rays)
+        jitter = torch.rand((obj.k * cfg.train_rays, cfg.n_samples), generator=g, device=dev)
+        return batch_mod.train_step(p, opt, batch, jitter, cfg)
+
+    return step
+
+
+def phase_batch_train(dev, root: str, gather: dict, scatter: dict, source: BatchSource, single_ms: float,
+                      card: str):
+    cfg = VOXEL_CFG
+    k = len(BATCH_FRAMES)
+    log(f"== phase 11a: train {k} objects together through train_batch, {cfg.n_steps} steps x {cfg.train_rays} "
+        f"rays each, {'/'.join(map(str, BATCH_FRAMES))} frames {CAMERA.width}x{CAMERA.height}")
+    trains, tests = [], []
+    for i, (n_frames, colour) in enumerate(zip(BATCH_FRAMES, BATCH_PATTERNS)):
+        trains.append(write_scene(root, dev, f"obj{i}_train", n_frames, turn=0.0, colour=colour))
+        tests.append(load_dataset(write_scene(root, dev, f"obj{i}_test", N_TEST_FRAMES, turn=0.5, colour=colour)))
+    datasets = [load_dataset(j) for j in trains]
+    row_gather.launches = 0
+    row_scatter_add.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    params, losses = batch_mod.train_batch(datasets, cfg, seed=0, device=dev)
+    sync()
+    wall = time.perf_counter() - t0
+    launched = (row_gather.launches, row_scatter_add.launches)
+    gather["launches_batched"], scatter["launches_batched"] = launched
+    want = expected_train_launches(cfg)
+    log(f"train_batch: {wall:.2f} s for {k} objects, params "
+        + ", ".join(f"{name} {tuple(v.shape)}" for name, v in params.items()))
+    log(f"launches in train_batch: row_gather {launched[0]}, row_scatter_add {launched[1]} "
+        f"(predicted {want[0]} + {want[1]} for all {k} objects, as for one)")
+    if launched != want:
+        raise SystemExit("the batched launch counts are not the ones the code predicts")
+    if losses.shape != (cfg.n_steps, k) or not np.isfinite(losses).all():
+        raise SystemExit(f"batched losses are missing or not finite: {losses.shape}")
+    for i in range(k):
+        first, last = float(losses[:20, i].mean()), float(losses[-100:, i].mean())
+        metrics = eval_nerf(batch_mod.slice_params(params, i), tests[i], cfg)
+        base = black_psnr(tests[i])
+        log(f"object {i} ({BATCH_FRAMES[i]} frames): loss first 20 {first:.6f}, last 100 {last:.6f} "
+            f"(ratio {last / first:.4f}, need <= {LOSS_DROP}); eval PSNR {metrics['PSNR']:.3f} dB, SSIM "
+            f"{metrics['SSIM']:.4f}, black {base:.3f} dB (need >= {PSNR_MARGIN_DB} dB above)")
+        if not last <= LOSS_DROP * first:
+            raise SystemExit(f"batched object {i} did not bring its loss down")
+        if not (math.isfinite(metrics["PSNR"]) and metrics["PSNR"] >= base + PSNR_MARGIN_DB):
+            raise SystemExit(f"batched object {i} does not beat a black frame by the margin")
+
+    obj = batch_mod.upload_objects(datasets, cfg, dev)
+    steppers = {"single": make_stepper(batch_mod.slice_params(params, 1), cfg, source, seed=7),
+                "batched": batched_stepper(params, cfg, obj, seed=7)}
+    times = {"single": [], "batched": []}
+    for name in ("single", "batched", "single", "batched"):
+        times[name].append(step_ms(steppers[name], 50))
+    single, batched = min(times["single"]), min(times["batched"])
+    log(f"tight ms/step in turns (host clock, {card}): one object {times['single'][0]:.4f} / "
+        f"{times['single'][1]:.4f}, {k} objects {times['batched'][0]:.4f} / {times['batched'][1]:.4f}; "
+        f"object-steps/s {k * 1e3 / batched:.1f} batched against {1e3 / single:.1f} one at a time "
+        f"({k * single / batched:.2f}x); phase 5's one-object tight step {single_ms:.4f} ms")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            steppers["batched"]()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("3 tight batched steps under torch.cuda.set_sync_debug_mode('error'): no host sync")
+    profile_device(steppers["batched"], f"one tight batched step (K={k})", batched * 1e-3)
+    del steppers
+    return params, cfg, obj, datasets
+
+
+def batched_loss_and_grads(params, batch, jitter, cfg):
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    losses = batch_mod.batch_loss(p, batch, jitter, cfg)
+    losses.sum().backward()
+    return losses.detach().cpu(), {k: v.grad for k, v in p.items()}
+
+
+def offset_dropped(rows: int):
+    """A broken gather for K stacked grids: every object reads object 0's rows."""
+    def gather_fn(table, idx):
+        return row_gather(table, (idx % rows).contiguous())
+    return gather_fn
+
+
+def batched_vs_single(params, cfg: NerfConfig, batch, jitter, k: int, n: int) -> tuple:
+    """Per object, (single step's loss and gradients, (batched vs single
+    relative loss difference, worst gradient difference over its max)) of
+    one batched step against each object's single step on its own rays."""
+    g0, s0 = row_gather.launches, row_scatter_add.launches
+    losses, grads = batched_loss_and_grads(params, batch, jitter, cfg)
+    if (row_gather.launches - g0, row_scatter_add.launches - s0) != (2, 1):
+        raise SystemExit(f"a tight batched step must launch row_gather twice and row_scatter_add once for all {k}")
+    out = []
+    for i in range(k):
+        rays = slice(i * n, (i + 1) * n)
+        one = loss_and_grads(batch_mod.slice_params(params, i), tuple(t[rays] for t in batch), jitter[rays], cfg)
+        out.append((one, step_disagreement(one, (float(losses[i]), {name: v[i] for name, v in grads.items()}))))
+    return out
+
+
+def phase_batch_step(dev, params, cfg: NerfConfig, obj):
+    k, n = obj.k, cfg.train_rays
+    log(f"== phase 11b: one batched step through the kernels against {k} single-object steps on the same rays")
+    g = torch.Generator(device=dev).manual_seed(13)
+    batch = batch_mod.sample_objects(g, obj, n)
+    jitter = torch.rand((k * n, cfg.n_samples), generator=g, device=dev)
+    # held at f64 compute: a batched product and one object's product sum
+    # their 65,536-sample weight gradients in other orders (other GEMM
+    # kernels), which moved a gradient by up to 6.7e-6 of its max in f32 and
+    # 6.7e-3 in bf16 on an H100 80GB HBM3 at 700 W (both logged below); in
+    # f64 that is ~1e-16, and what is left is the kernels' and the object
+    # offsets' doing (measured 1.2e-8 to 5.5e-8)
+    f64 = dataclasses.replace(cfg, compute_dtype=torch.float64)
+    held = batched_vs_single(params, f64, batch, jitter, k, n)
+    for i, (one, (d_loss, d_grad)) in enumerate(held):
+        log(f"object {i}, f64 products: loss {one[0]:.8f}, batched vs single relative loss diff {d_loss:.3e} "
+            f"(need <= {STEP_LOSS_TOL}), worst gradient diff {d_grad:.3e} of its max (need <= {STEP_GRAD_TOL})")
+        if not (d_loss <= STEP_LOSS_TOL and d_grad <= STEP_GRAD_TOL):
+            raise SystemExit(f"the batched step disagrees with object {i}'s single step")
+    for label, c in (("f32", dataclasses.replace(cfg, compute_dtype=torch.float32)), ("the trained bf16", cfg)):
+        gaps = batched_vs_single(params, c, batch, jitter, k, n)
+        log(f"at {label} products (no limit: the two GEMMs' own rounding): " + "; ".join(
+            f"object {i} loss diff {d[0]:.3e}, gradient diff {d[1]:.3e}" for i, (_, d) in enumerate(gaps)))
+    rows = cfg.voxel_grid_size ** 3
+    saved = voxelfield.row_gather
+    voxelfield.row_gather = offset_dropped(rows)
+    try:
+        bad_losses, bad_grads = batched_loss_and_grads(params, batch, jitter, f64)
+    finally:
+        voxelfield.row_gather = saved
+    worst = max(step_disagreement(held[i][0], (float(bad_losses[i]), {name: v[i] for name, v in bad_grads.items()}))
+                for i in range(1, k))
+    caught = worst[0] > STEP_LOSS_TOL or worst[1] > STEP_GRAD_TOL
+    log(f"  broken on purpose, the object offset dropped (every object reads object 0's rows): worst loss diff "
+        f"{worst[0]:.3e}, gradient diff {worst[1]:.3e} over objects 1-{k - 1} -> {'caught' if caught else 'NOT caught'}")
+    if not caught:
+        raise SystemExit("the batched step tolerances do not catch a dropped object offset")
+
+
+def phase_batch_hash(dev, datasets, k_hash: dict, k_bwd: dict, card: str):
+    cfg = dataclasses.replace(HASH_CFG, n_steps=BATCH_HASH_STEPS)
+    k = BATCH_HASH_K
+    log(f"== phase 11c: train {k} full-width hash fields together, {cfg.n_steps} steps")
+    hash_encode.launches = 0
+    hash_encode_backward.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    _, losses = batch_mod.train_batch(datasets[:k], cfg, seed=0, device=dev)
+    sync()
+    wall = time.perf_counter() - t0
+    launched = (hash_encode.launches, hash_encode_backward.launches)
+    k_hash["launches_batched"], k_bwd["launches_batched"] = launched
+    # one encode (and one table gradient) per object and march: this slice's
+    # batched hash step launches K1 and K1b once per object
+    want_k1, want_bwd = expected_train_launches(cfg)
+    want = (k * want_k1, k * want_bwd)
+    log(f"train_batch (hash): {wall:.2f} s ({card}); hash_encode {launched[0]}, hash_encode_backward "
+        f"{launched[1]} launches (predicted {want[0]} + {want[1]}: once per object and march)")
+    if launched != want:
+        raise SystemExit("the batched hash launch counts are not the ones the code predicts")
+    if losses.shape != (cfg.n_steps, k) or not np.isfinite(losses).all():
+        raise SystemExit("batched hash losses are missing or not finite")
+    for i in range(k):
+        first, last = float(losses[:20, i].mean()), float(losses[-20:, i].mean())
+        log(f"hash object {i}: mean of the first 20 losses {first:.6f}, of the last 20 {last:.6f} (need lower)")
+        if not last < first:
+            raise SystemExit(f"batched hash object {i} did not learn")
+
+
+def robust_labels(curve, max_psnr):
+    """(gap, gradient) masks of the labels that any curve within
+    FIT_CURVE_TOL of ``curve``, its view-to-view differences within
+    FIT_DIFF_TOL, must share with it: the first view that meets each
+    threshold meets it by more than the tolerance, and every earlier view
+    misses it by more."""
+    def robust(margins, tol):
+        hit = margins > 0
+        first = np.where(hit.any(axis=1), hit.argmax(axis=1), margins.shape[1])
+        return np.array([bool((row[:j] < -tol).all() and (j == len(row) or row[j] > tol))
+                         for row, j in zip(margins, first)])
+    gap = robust(curve[None, :] - np.outer(1.0 - 0.01 * np.arange(labels_mod.N_GAPS), [max_psnr]), FIT_CURVE_TOL)
+    ts = 0.01 * (np.arange(labels_mod.N_GRADIENTS) + 1)
+    grad = robust(ts[:, None] - np.diff(curve)[None, :], FIT_DIFF_TOL)
+    return gap, grad
+
+
+def phase_labeling(dev, card: str):
+    log(f"== phase 11d: labeling, {FIT_B} PSNR curves on {len(FIT_X)} view counts fit on the card and on the CPU")
+    rng = np.random.default_rng(0)
+    y0, a = rng.uniform(8, 15, FIT_B), rng.uniform(10, 25, FIT_B)
+    mu, sg = np.log(rng.uniform(6, 30, FIT_B)), rng.uniform(0.4, 1.3, FIT_B)
+    erf = np.vectorize(math.erf)
+
+    def truth(x):
+        return y0[:, None] + a[:, None] * 0.5 * (1.0 + erf((np.log(x)[None] - mu[:, None]) / sg[:, None] / math.sqrt(2)))
+
+    ys = truth(FIT_X.astype(np.float64)) + rng.normal(0, FIT_NOISE, (FIT_B, len(FIT_X)))
+    tops = truth(np.array([100.0]))[:, 0] + rng.uniform(-0.2, 0.8, FIT_B)
+    fit_batch(FIT_X, ys[:8], device=dev)  # warm up
+    sync()
+    t0 = time.perf_counter()
+    res = fit_batch(FIT_X, ys, device=dev)
+    sync()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = fit_objects(FIT_X, ys, tops, device=dev)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = fit_objects(FIT_X, ys, tops, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    curves_g = np.stack([r.curve for r in got]).astype(np.float64)
+    curves_w = np.stack([r.curve for r in want]).astype(np.float64)
+    d_curve = float(np.abs(curves_g - curves_w).max())
+    d_diff = float(np.abs(np.diff(curves_g, axis=1) - np.diff(curves_w, axis=1)).max())
+    same_conv = [g.converged for g in got] == [w.converged for w in want]
+    compared = differ = 0
+    for g, w, m in zip(got, want, tops):
+        gap, grad = robust_labels(w.curve.astype(np.float64), m)
+        differ += int((g.gap_labels[gap] != w.gap_labels[gap]).sum() + (g.gradient_labels[grad] != w.gradient_labels[grad]).sum())
+        compared += int(gap.sum() + grad.sum())
+    all_differ = sum(int((g.gap_labels != w.gap_labels).sum() + (g.gradient_labels != w.gradient_labels).sum())
+                     for g, w in zip(got, want))
+    off_truth = float(np.abs(curves_g - truth(labels_mod.X_EVAL.astype(np.float64))).mean())
+    log(f"fit_batch of {FIT_B} curves on the card: {t_fit:.4f} s; fit_objects (fit + labels) {t_card:.3f} s on the "
+        f"card, {t_cpu:.3f} s on the CPU ({card}); {int(res.converged.sum())} converged")
+    log(f"card vs CPU: curves within {d_curve:.3e} dB (need <= {FIT_CURVE_TOL}), differences within {d_diff:.3e} "
+        f"(need <= {FIT_DIFF_TOL}), converged flags {'equal' if same_conv else 'DIFFER'}; {compared} of "
+        f"{FIT_B * 31} labels away from a threshold, {differ} of them differ (need 0), {all_differ} differ in all; "
+        f"mean |card curve - the noiseless truth| {off_truth:.4f} dB")
+    if not (d_curve <= FIT_CURVE_TOL and d_diff <= FIT_DIFF_TOL and same_conv and differ == 0):
+        raise SystemExit("the card's labeling disagrees with the CPU's")
+    if int(res.converged.sum()) < 0.9 * FIT_B or compared < 0.5 * FIT_B * 31:
+        raise SystemExit("too few fits converged or too few labels compared")
+
+
+def phase_planning(dev, root: str, card: str):
+    log(f"== phase 11e: path planning, precompute_paths for {PLAN_SIZES.start}..{PLAN_SIZES.stop - 1} views")
+    vs_dir = os.path.join(root, "hemisphere")
+    sync()
+    t0 = time.perf_counter()
+    for n in PLAN_SIZES:
+        save_view_space(vs_dir, generate_hemisphere(n, seed=n, restarts=2, steps=200, device=dev))
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    precompute_paths(vs_dir, PLAN_SIZES, device=dev)
+    t_plan = time.perf_counter() - t0
+    for n in PLAN_SIZES:
+        views, order = load_view_space(vs_dir, n), load_path_order(vs_dir, n)
+        top = int(np.argmin(np.linalg.norm(views - np.array([0.0, 0.0, 1.0]), axis=1)))
+        if sorted(order.tolist()) != list(range(n)) or int(order[0]) != top:
+            raise SystemExit(f"{n}_path.txt is not a visit order from the top view")
+    log(f"generate_hemisphere x {len(PLAN_SIZES)}: {t_gen:.2f} s; precompute_paths: {t_plan:.2f} s ({card}); "
+        f"every N_path.txt a permutation from the top view")
+    rng = np.random.default_rng(1)
+    pts = rng.normal(size=(60, 3))
+    pts = pts / np.linalg.norm(pts, axis=1, keepdims=True) * rng.uniform(0.8, 2.5, size=(60, 1))
+    n_max = max(PLAN_SIZES)
+    cases = ((f"{n_max}-view hemisphere", load_view_space(vs_dir, n_max), np.zeros(3) + 1e-10, 0.5),
+             ("60 points about a unit sphere, some inside", pts, np.array([0.0, 0.0, 0.05]), 1.0))
+    for label, views, center, r in cases:
+        got = pairwise_lengths(views, center, r, device=dev).cpu().numpy().astype(np.float64)
+        n = len(views)
+        ref = [[local_path(views[i], views[j], center, r) for j in range(n)] for i in range(n)]
+        modes = np.array([[m for m, _ in row] for row in ref])
+        lengths = np.array([[v for _, v in row] for row in ref])
+        off = ~np.eye(n, dtype=bool)
+        wrong = modes == WRONG_PATH
+        ok = off & ~wrong
+        rel = float((np.abs(got - lengths)[ok] / lengths[ok]).max())
+        kinds = {int(m) for m in modes[off].ravel()}
+        log(f"pairwise_lengths on the card, {label}: {int(wrong.sum())} wrong, {int((modes[ok] == CIRCLE_PATH).sum())} "
+            f"detour and {int((modes[ok] == LINE_PATH).sum())} line paths; worst relative gap to the float64 scalar "
+            f"{rel:.3e} (need <= {PLAN_RTOL})")
+        if rel > PLAN_RTOL or not (got[wrong] == 1e10).all() or not (got[ok] < 1e10).all() or CIRCLE_PATH not in kinds:
+            raise SystemExit(f"the card's edge matrix disagrees with the scalar local path ({label})")
+
+
+def phase_batch(dev, root: str, source: BatchSource, k_gather: dict, k_scatter: dict, k_hash: dict, k_bwd: dict,
+                single_ms: float, card: str):
+    t_phase = time.perf_counter()
+    params, cfg, obj, datasets = phase_batch_train(dev, root, k_gather, k_scatter, source, single_ms, card)
+    phase_batch_step(dev, params, cfg, obj)
+    del params, obj
+    phase_batch_hash(dev, datasets, k_hash, k_bwd, card)
+    del datasets
+    phase_labeling(dev, card)
+    phase_planning(dev, root, card)
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -2492,7 +2882,7 @@ def main() -> int:
         params, ds = phase_serve(dev, root, test_json, cfg, params, k_hash, card)
         phase_serve_vs_plain(params, ds, cfg)
         del params
-        vparams, vcfg, test_ds = phase_train(
+        vparams, vcfg, test_ds, single_ms = phase_train(
             dev, root, train_json, test_json, source, k_gather, k_scatter, tight_us, card)
         phase_step_vs_plain(dev, vparams, vcfg, source, test_ds)
         hparams, hcfg = phase_hash_train(dev, root, train_json, test_json, source, k_hash, k_bwd, card)
@@ -2501,6 +2891,7 @@ def main() -> int:
         phase_options(dev, root, train_json, vparams, vcfg, test_ds, card)
         del vparams
         k_splat, k_cast = phase_coverage(dev, root, card)
+        phase_batch(dev, root, source, k_gather, k_scatter, k_hash, k_bwd, single_ms, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast]}))

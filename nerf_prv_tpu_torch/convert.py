@@ -7,6 +7,12 @@ both write them as the same npz snapshot (``nerf/api.py``
 ``save_snapshot``), so conversion is a dtype-preserving copy between numpy
 arrays and tensors.  Only parameters cross: a snapshot carries no
 optimizer state on either side.
+
+A batched parameter tree (K objects' parameters stacked on a leading
+axis: the reference's ``vmap``-ed ``init_params`` and ``train_batch``, the
+port's ``nerf/batch_train.py``) crosses the same way, leading axis kept;
+either side's ``slice_params`` then gives object i's tree as that side's
+``eval_nerf`` and ``save_snapshot`` take it.
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ import torch
 def params_from_numpy(
     d: Union[Mapping[str, np.ndarray], str, os.PathLike], device="cuda"
 ) -> Dict[str, torch.Tensor]:
-    """Numpy arrays (``np.asarray`` of a JAX parameter tree), or the path
-    of an npz snapshot, -> the port's tensors on ``device``."""
+    """Numpy arrays (``np.asarray`` of a JAX parameter tree, batched or
+    not), or the path of an npz snapshot, -> the port's tensors on
+    ``device``."""
     if isinstance(d, (str, os.PathLike)):
         with np.load(d) as z:
             d = {k: z[k] for k in z.files}

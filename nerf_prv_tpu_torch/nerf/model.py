@@ -6,7 +6,9 @@ each default was chosen.  ``field_impl="voxel"`` (the default) dispatches
 to :mod:`.voxelfield`, ``"hash"`` to the multiresolution hash encoding.
 
 Parameters are a dict of tensors under the reference's key names, so
-snapshots interchange (``convert.py``).
+snapshots interchange (``convert.py``).  The field functions also take K
+objects' parameters stacked on a leading axis, the points object-major
+(``nerf/batch_train.py``; see :mod:`.voxelfield`).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from ..ops.fused import encode_fused
 from ..ops.sorted_grad import encode_sorted
 from .hashgrid import HashGridConfig, encode, init_table
-from .voxelfield import init_voxel_params, voxel_density_raw, voxel_field
+from .voxelfield import dense, init_voxel_params, voxel_density_raw, voxel_field
 
 
 @dataclass(frozen=True)
@@ -144,7 +146,11 @@ def _encode(table, x, cfg: NerfConfig):
     """Dispatch as the reference does: "fused" runs the kernels (forward
     and table gradient), "sorted" the plain encode with the sort-based
     backward, "xla" the plain encode under autograd; "auto" is "fused" for
-    CUDA tensors and "xla" on the CPU."""
+    CUDA tensors and "xla" on the CPU.  K stacked tables (K, L*T, F) encode
+    their own blocks of the object-major points, one call each."""
+    if table.dim() == 3:
+        xs = x.reshape(table.shape[0], -1, 3)
+        return torch.cat([_encode(t, xk, cfg) for t, xk in zip(table.unbind(0), xs.unbind(0))])
     impl = cfg.encode_impl
     if impl == "auto":
         impl = "fused" if x.device.type == "cuda" else "xla"
@@ -159,8 +165,8 @@ def density_raw(params, x, cfg: NerfConfig):
     """x (N,3) in [0,1]^3 -> (raw log-density (N,), geo features (N, G))."""
     feats = _encode(params["table"], x, cfg)
     ct = cfg.compute_dtype
-    hmid = torch.clamp_min(feats.to(ct) @ params["sigma_w0"].to(ct), 0)
-    out = (hmid @ params["sigma_w1"].to(ct)).to(torch.float32)
+    hmid = torch.clamp_min(dense(feats.to(ct), params["sigma_w0"].to(ct)), 0)
+    out = dense(hmid, params["sigma_w1"].to(ct)).to(torch.float32)
     return out[..., 0], out[..., 1:]
 
 
@@ -169,9 +175,9 @@ def radiance(params, geo_feats, dirs, cfg: NerfConfig):
     sh = sh_encode_deg4(dirs)
     ct = cfg.compute_dtype
     hcol = torch.cat([sh, geo_feats], dim=-1).to(ct)
-    hcol = torch.clamp_min(hcol @ params["color_w0"].to(ct), 0)
-    hcol = torch.clamp_min(hcol @ params["color_w1"].to(ct), 0)
-    logits = (hcol @ params["color_w2"].to(ct)).to(torch.float32)
+    hcol = torch.clamp_min(dense(hcol, params["color_w0"].to(ct)), 0)
+    hcol = torch.clamp_min(dense(hcol, params["color_w1"].to(ct)), 0)
+    logits = dense(hcol, params["color_w2"].to(ct)).to(torch.float32)
     return torch.sigmoid(logits)
 
 

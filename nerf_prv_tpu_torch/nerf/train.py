@@ -170,11 +170,14 @@ def _sample_batch(generator, pixels_u8, rot, org, camera, n_rays):
     return o, d, _blend_target(rgba, bg), bg
 
 
-def _huber_mean(err, cfg: NerfConfig):
+def _huber(err, cfg: NerfConfig):
     delta = cfg.huber_delta
     abs_err = torch.abs(err)
-    huber = torch.where(abs_err <= delta, 0.5 * err * err, delta * (abs_err - 0.5 * delta))
-    return torch.mean(huber)
+    return torch.where(abs_err <= delta, 0.5 * err * err, delta * (abs_err - 0.5 * delta))
+
+
+def _huber_mean(err, cfg: NerfConfig):
+    return torch.mean(_huber(err, cfg))
 
 
 def batch_loss(params, batch, jitter, cfg: NerfConfig, probe_raw=None, generator=None):

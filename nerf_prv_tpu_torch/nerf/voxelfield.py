@@ -10,6 +10,12 @@ The forward's one gather per sample is :func:`~..ops.row_gather.row_gather`
 and the grid's gradient is :func:`~..ops.row_scatter_add.row_scatter_add`:
 on CUDA tensors both are hand-written kernels, on CPU tensors their plain
 versions.
+
+The field functions also take K objects' parameters stacked on a leading
+axis (``grid`` (K, g^3, 8F), weights (K, in, out); ``nerf/batch_train.py``)
+with the points object-major, K equal blocks: the K grids are read as one
+(K*g^3, 8F) table through one gather and one scatter-add, object k's rows
+offset by k*g^3, and each MLP layer is one batched product.
 """
 
 from __future__ import annotations
@@ -91,13 +97,22 @@ def blend_rows(rows: torch.Tensor, frac: torch.Tensor, f: int) -> torch.Tensor:
     return (w[:, :, None] * rows.reshape(-1, 8, f)).sum(dim=1)
 
 
+def dense(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` for one field's weight (in, out), or one batched product
+    for K fields' stacked weights (K, in, out) over h's object-major rows."""
+    if w.dim() == 2:
+        return h @ w
+    k = w.shape[0]
+    return torch.bmm(h.reshape(k, -1, h.shape[-1]), w).reshape(-1, w.shape[-1])
+
+
 def density_mlp(params, feats: torch.Tensor, x: torch.Tensor, cfg) -> torch.Tensor:
     """(blended features, positions) -> raw (N, 1 + geo_features)."""
     pe = pe_encode(x, cfg.voxel_pe_freqs)
     ct = cfg.compute_dtype
     h = torch.cat([feats, pe], dim=-1).to(ct)
-    h = torch.clamp_min(h @ params["sigma_w0"].to(ct), 0)
-    return (h @ params["sigma_w1"].to(ct)).to(torch.float32)
+    h = torch.clamp_min(dense(h, params["sigma_w0"].to(ct)), 0)
+    return dense(h, params["sigma_w1"].to(ct)).to(torch.float32)
 
 
 def init_voxel_params(generator: torch.Generator, cfg, device="cuda") -> Dict[str, torch.Tensor]:
@@ -139,7 +154,14 @@ def _gather(params, row_idx, cfg):
     reference's sorted path, gathers in float32).
     """
     bf16 = cfg.voxel_gather_dtype == "bf16" and cfg.voxel_grad_impl != "sorted"
-    return _GatherRows.apply(params["grid"], row_idx, bf16).to(torch.float32)
+    grid = params["grid"]
+    if grid.dim() == 3:
+        # K grids as one table: object k's rows follow k * g^3
+        k, rows = grid.shape[:2]
+        base = torch.arange(k, dtype=row_idx.dtype, device=row_idx.device) * rows
+        row_idx = (row_idx.reshape(k, -1) + base[:, None]).reshape(-1)
+        grid = grid.reshape(k * rows, grid.shape[2])
+    return _GatherRows.apply(grid, row_idx, bf16).to(torch.float32)
 
 
 def _blend(params, x, cfg):

@@ -362,12 +362,14 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nerf_prv_tpu.'))"
         " or m == 'nerf_prv_tpu' or m == 'optax' or m.startswith('optax.'))\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 30, names\n"
         "assert {p.__name__ + s for s in ('.nerf.voxelfield', '.nerf.train', '.ops.row_gather', '.ops.row_scatter_add',"
         " '.ops.sorted_grad', '.ops.fused', '.nerf.extract', '.scene.ply', '.core.camera', '.core.config',"
         " '.viewspace.hemisphere', '.viewspace.novel', '.ops.splat', '.ops.voxel_cast', '.scene.render',"
         " '.scene.voxel', '.scene.mesh_sampling', '.scene.object_setup', '.runtime.native',"
-        " '.pipeline.coverage')} <= set(names)\n"
+        " '.pipeline.coverage', '.labeling.lognormal', '.labeling.labels', '.labeling.stats',"
+        " '.labeling.dataset', '.planning.local_path', '.planning.tsp', '.parallel.mesh',"
+        " '.nerf.batch_train')} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )

@@ -185,6 +185,67 @@ def test_voxel_gradient_through_kernels_matches_plain(cuda_device):
         assert scale > 0 and float((grads[0][k] - grads[1][k]).abs().max()) <= 2e-3 * scale, k  # card vs CPU: other exp, sin and matmul rounding; measured 3.1e-4
 
 
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_row_kernels_on_stacked_grids(cuda_device, k):
+    """K grids read as one (K*R, W) bf16 table, each object's indices offset
+    by k*R (the batched trainer's gather and scatter-add)."""
+    rng = np.random.default_rng(k)
+    rows, width, n = 8000, 64, 6007
+    table = torch.from_numpy(rng.uniform(-1, 1, size=(k * rows, width)).astype(np.float32)).to(cuda_device)
+    table = table.to(torch.bfloat16)
+    local = rng.integers(0, rows, size=(k, n))
+    idx = torch.from_numpy((local + rows * np.arange(k)[:, None]).reshape(-1)).to(cuda_device, torch.int32)
+    got = row_gather(table, idx)
+    for i in range(k):
+        part = table[i * rows : (i + 1) * rows]
+        want = row_gather_plain(part, torch.from_numpy(local[i]).to(cuda_device))
+        assert torch.equal(got[i * n : (i + 1) * n], want)
+    upd = torch.from_numpy(rng.uniform(-1, 1, size=(k * n, width)).astype(np.float32)).to(cuda_device)
+    summed = row_scatter_add(idx, upd, k * rows)
+    want = torch.zeros((k * rows, width), dtype=torch.float64, device=cuda_device).index_add_(0, idx.long(), upd.double())
+    assert float((summed.double() - want).abs().max()) <= 1e-4  # a row sums a few f32 terms of magnitude <= 1
+
+
+def test_batched_voxel_step_equals_single_steps(cuda_device):
+    """One batched step of three small voxel fields through the kernels (two
+    gathers and one scatter-add for all three) against each field's own
+    single-object step on the same rays and jitter, f32 compute."""
+    from nerf_prv_tpu_torch.nerf import batch_train as tbt
+    from nerf_prv_tpu_torch.nerf import model as tm
+    from nerf_prv_tpu_torch.nerf import train as ttr
+
+    k, n = 3, 1024
+    cfg = tm.NerfConfig(voxel_grid_size=16, compute_dtype=torch.float32)
+    params = tbt.init_batched_params(torch.Generator().manual_seed(0), cfg, k, device="cpu")
+    params["grid"] *= 1e4
+    params = {name: v.to(cuda_device) for name, v in params.items()}
+    rng = np.random.default_rng(2)
+    o = np.repeat([[0.5, 0.5, 2.0]], k * n, axis=0) + rng.normal(size=(k * n, 3)) * 0.1
+    d = rng.uniform(0.2, 0.8, size=(k * n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda_device)  # noqa: E731
+    batch = (as_t(o), as_t(d), as_t(rng.uniform(size=(k * n, 3))), as_t(rng.uniform(size=(k * n, 3))))
+    jitter = as_t(rng.uniform(size=(k * n, cfg.n_samples)))
+    q = {name: v.clone().requires_grad_(True) for name, v in params.items()}
+    g0, s0 = row_gather.launches, row_scatter_add.launches
+    losses = tbt.batch_loss(q, batch, jitter, cfg)
+    losses.sum().backward()
+    torch.cuda.synchronize()
+    assert (row_gather.launches - g0, row_scatter_add.launches - s0) == (2, 1)
+    for i in range(k):
+        one = {name: v[i].clone().requires_grad_(True) for name, v in params.items()}
+        rays = slice(i * n, (i + 1) * n)
+        loss = ttr.batch_loss(one, tuple(t[rays] for t in batch), jitter[rays], cfg)
+        loss.backward()
+        assert abs(float(losses[i].detach()) - float(loss.detach())) <= 1e-6 * abs(float(loss.detach()))
+        for name in params:
+            g1, g = q[name].grad[i], one[name].grad
+            # the grid's rows meet only their own object's updates; the
+            # atomics' order and the batched products may round otherwise
+            assert float((g1 - g).abs().max()) <= 1e-5 * float(g.abs().max()), (name, i)
+
+
 # --- the hash encode's table gradient ---------------------------------------
 
 
