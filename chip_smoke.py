@@ -68,7 +68,25 @@ Phases:
     for 150 steps, K1 and K1b counted per object; (d) 3,000 PSNR curves fit
     and labeled on the card against the CPU; (e) ``precompute_paths`` for
     3..100 views on the port's view spaces, and the card's edge matrix
-    against the float64 scalar local path.
+    against the float64 scalar local path;
+(12) the PRV experiment at full width: (a) PRVNet (ConvNeXt-V2 tiny, seeded
+    random weights) predicts a view budget from the init views [0, 1, 3] of
+    phase 10's object's 5-view coverage set through
+    ``BudgetPredictor.predict_from_coverage``, its encoder features and logit
+    on the card held against the same model on the CPU, its weights carried
+    through the Flax layout and back, its forward timed and profiled with
+    cuDNN's convolutions in full float32 (the predictor's own setting) and,
+    on its model directly, in TF32; (b) mode 21, method 4
+    (PVBCoverage) at the reference's defaults (540-view space, 5 init views,
+    the default voxel field trained 2,500 steps on the planned views and
+    scored on the 100-view set at 1280x720), its artifacts, PSNR and the
+    launches of K8, K9 and the row kernels held to the code's prediction
+    (the eval's gathers from the render's chunking of this run's level-1
+    survivors), the first, middle and last frames of each of K8's coverage
+    launches (F = 540 among them) bit-equal to ``splat_plain``, each stage
+    timed; (c) methods 0-3 on the same object at a cut depth
+    (2 iterations, 300-step NeRFs), their artifacts and methods 0 and 1's
+    choices held to the numpy draws.
 Any failure exits non-zero.  The line before the last is the kernel table
 as JSON, the last line the device.  It imports nothing of JAX or of
 ``nerf_prv_tpu``.
@@ -150,16 +168,25 @@ from nerf_prv_tpu_torch.ops import voxel_cast as cast_mod  # noqa: E402
 from nerf_prv_tpu_torch.ops.sorted_grad import _levelwise_indices_weights, table_grad_sorted  # noqa: E402
 from nerf_prv_tpu_torch.ops.splat import splat, splat_plain  # noqa: E402
 from nerf_prv_tpu_torch.ops.voxel_cast import voxel_cast, voxel_cast_plain  # noqa: E402
+from nerf_prv_tpu_torch.convert import prvnet_state_dict_from_flax, prvnet_state_dict_to_flax  # noqa: E402
+from nerf_prv_tpu_torch.pipeline import coverage as coverage_mod  # noqa: E402
+from nerf_prv_tpu_torch.pipeline import modes as modes_mod  # noqa: E402
+from nerf_prv_tpu_torch.pipeline import nbv as nbv_mod  # noqa: E402
 from nerf_prv_tpu_torch.pipeline.coverage import generate_novel_sets, get_coverage  # noqa: E402
+from nerf_prv_tpu_torch.pipeline.nbv import NBVRunner  # noqa: E402
+from nerf_prv_tpu_torch.planning.tsp import GlobalPathPlanner  # noqa: E402
+from nerf_prv_tpu_torch.prvnet.infer import BudgetPredictor  # noqa: E402
+from nerf_prv_tpu_torch.prvnet.model import IMG_PATTERN, make_pvbnet  # noqa: E402
 from nerf_prv_tpu_torch.planning.local_path import (  # noqa: E402
     CIRCLE_PATH, LINE_PATH, WRONG_PATH, local_path, pairwise_lengths,
 )
 from nerf_prv_tpu_torch.planning.tsp import precompute_paths  # noqa: E402
 from nerf_prv_tpu_torch.runtime import native  # noqa: E402
 from nerf_prv_tpu_torch.scene.mesh_sampling import sample_and_voxelize  # noqa: E402
-from nerf_prv_tpu_torch.scene.object_setup import load_object  # noqa: E402
+from nerf_prv_tpu_torch.scene import object_setup as object_setup_mod  # noqa: E402
+from nerf_prv_tpu_torch.scene.object_setup import _ensure_viewspace, load_object  # noqa: E402
 from nerf_prv_tpu_torch.scene.ply import load_ply  # noqa: E402
-from nerf_prv_tpu_torch.scene.render import _colors01, _world_to_camera, object_pixel_rate  # noqa: E402
+from nerf_prv_tpu_torch.scene.render import _colors01, _points, _world_to_camera, object_pixel_rate  # noqa: E402
 from nerf_prv_tpu_torch.scene.voxel import precept, precept_rays  # noqa: E402
 from nerf_prv_tpu_torch.viewspace.hemisphere import (  # noqa: E402
     ViewSpace, generate_hemisphere, load_path_order, load_view_space, save_view_space,
@@ -173,6 +200,7 @@ hash_encode_mod = sys.modules[hash_encode.__module__]
 # outside the tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12  # dense, the tensor cores
 
 ENCODE_TOL = 1e-5  # f32 blend of table values in [-1, 1]; FMA vs mul+add
 # dB between kernel and plain-encode renders of the served frame.  On an
@@ -2833,6 +2861,404 @@ def phase_batch(dev, root: str, source: BatchSource, k_gather: dict, k_scatter: 
     log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 12: the PRV experiment: PRVNet serves a budget, mode 21 plans, captures and trains -----
+
+PRV_ARCH = "convnextv2_tiny"
+PRV_SEED = 0
+PRV_CASE = tuple(IMG_PATTERN[2])  # the init views the budget is predicted from
+# card against CPU, cuDNN's convolutions in full float32 on the card: the
+# encoder's 1000 features relative to their largest, and the logit
+PRV_FEATURE_RTOL = 1e-4
+PRV_LOGIT_ATOL = 1e-4
+# TF32 convolutions against full float32 on the card: logged, not held
+MODE21_PSNR_MARGIN_DB = 15.0  # phase 5's margin over an all-black frame
+NBV_ITERATIONS = 2  # 12c: methods 0-3 at a cut depth
+NBV_STEPS = 300
+NBV_TEST_ID = 1  # no method-4 budget file for it: num_of_max_iteration applies
+
+
+def count_macs(model: torch.nn.Module, x: torch.Tensor) -> int:
+    """Multiply-adds of the convolutions and linear layers in one forward."""
+    macs = [0]
+
+    def hook(m, inp, out):
+        if isinstance(m, torch.nn.Conv2d):
+            macs[0] += out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+        else:
+            macs[0] += out.numel() * m.in_features
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return macs[0]
+
+
+def forward(pred: BudgetPredictor, x: torch.Tensor, tf32: bool, encoder_only: bool = False) -> torch.Tensor:
+    """The predictor's model (or its encoder) on the device tensor ``x`` with
+    cuDNN's convolutions in TF32 or in full f32, scoped to this call."""
+    b = torch.backends.cudnn
+    with torch.no_grad(), b.flags(enabled=b.enabled, benchmark=b.benchmark, deterministic=b.deterministic,
+                                  allow_tf32=tf32):
+        return (pred.model.encoder if encoder_only else pred.model)(x)
+
+
+def encoder_features(pred: BudgetPredictor, views: np.ndarray, tf32: bool = False) -> torch.Tensor:
+    """The encoder's (K, 1000) features, its convolutions in TF32 or f32."""
+    x = torch.as_tensor(views, device=pred.device).permute(0, 3, 1, 2)
+    return forward(pred, x, tf32, encoder_only=True).float().cpu()
+
+
+def phase_prvnet(dev, root: str, card: str) -> tuple:
+    log(f"== phase 12a: PRVNet ({PRV_ARCH}, seeded random weights) predicts a view budget from views "
+        f"{list(PRV_CASE)} of the 5-view coverage set")
+    cfg, _, _ = coverage_config(root)  # phase 10's object: size.txt is there, no size test runs
+    scene = load_object(cfg, device=dev)
+    get_coverage(scene, cfg, 5, device=dev)
+    cov_dir = os.path.join(cfg.gt_path, "5")
+    torch.manual_seed(PRV_SEED)
+    sd = make_pvbnet(PRV_ARCH).state_dict()
+    back = prvnet_state_dict_from_flax(prvnet_state_dict_to_flax(sd))
+    if set(back) != set(sd) or any(back[k].shape != sd[k].shape or not torch.equal(back[k], sd[k]) for k in sd):
+        raise SystemExit("the weights do not come back from the Flax layout key for key")
+    log(f"weights through the Flax layout and back: {len(sd)} tensors, "
+        f"{sum(v.numel() for v in sd.values())} parameters, keys, shapes and values equal")
+
+    card_pred = BudgetPredictor(params=sd, arch=PRV_ARCH, device=dev)
+    cpu_pred = BudgetPredictor(params=sd, arch=PRV_ARCH, device="cpu")
+    views = card_pred.coverage_views(cov_dir, PRV_CASE)
+    macs = count_macs(cpu_pred.model, torch.as_tensor(views)[None])
+    t = time.perf_counter()
+    cpu_logit = float(cpu_pred.logits(views)[0])
+    cpu_s = time.perf_counter() - t
+    cpu_feat = encoder_features(cpu_pred, views)
+    card_feat = encoder_features(card_pred, views)
+    card_logit = float(card_pred.logits(views)[0])
+    feat_err = float((card_feat - cpu_feat).abs().max() / cpu_feat.abs().max())
+    card_value = card_pred.predict_value_from_arrays(views)
+    cpu_value = cpu_pred.predict_value_from_arrays(views)
+    log(f"{len(PRV_CASE)} views {views.shape[1]}x{views.shape[2]}: {macs / 1e9:.2f} GMAC = {2 * macs / 1e9:.1f} GFLOP "
+        f"per forward ({macs / len(PRV_CASE) / 1e9:.2f} GMAC a view); the CPU forward {cpu_s:.2f} s")
+    log(f"card against CPU, f32 convolutions: features {feat_err:.3e} of their largest (need <= {PRV_FEATURE_RTOL}), "
+        f"logit {card_logit:.8f} against {cpu_logit:.8f} (|diff| {abs(card_logit - cpu_logit):.3e}, need <= "
+        f"{PRV_LOGIT_ATOL}); continuous budget {card_value:.6f} against {cpu_value:.6f}")
+    if not (feat_err <= PRV_FEATURE_RTOL and abs(card_logit - cpu_logit) <= PRV_LOGIT_ATOL):
+        raise SystemExit("PRVNet on the card does not agree with the CPU")
+
+    # the predictor's own call is f32; TF32 is timed on its model directly,
+    # and both on the same device input, so the two times differ only by it
+    x = torch.as_tensor(views, device=dev)[None]
+    times = {}
+    for tf32 in (False, True):
+        name = "tf32" if tf32 else "f32"
+        times[name] = time_ms(lambda: forward(card_pred, x, tf32), iters=10)
+        logit = float(forward(card_pred, x, tf32)[0])
+        feat = encoder_features(card_pred, views, tf32)
+        log(f"forward with cuDNN {name} convolutions: {times[name]:.3f} ms (events around 10 calls), logit "
+            f"{logit:.8f} (f32 card's {card_logit:.8f}, |diff| {abs(logit - card_logit):.3e}), features "
+            f"{float((feat - cpu_feat).abs().max() / cpu_feat.abs().max()):.3e} from the CPU's of their largest")
+    log(f"the predictor's logits call (host views copied in): {time_ms(lambda: card_pred.logits(views), iters=10):.3f} ms")
+    f32_bound = 2 * macs / F32_OPS_PER_S * 1e3
+    tf32_bound = 2 * macs / TF32_OPS_PER_S * 1e3
+    log(f"bounds ({card}): {f32_bound:.3f} ms at the f32 peak (67 TFLOP/s outside the tensor cores), "
+        f"{tf32_bound:.3f} ms at the TF32 peak (495 TFLOP/s): f32 at {f32_bound / times['f32']:.3f} of its bound, "
+        f"TF32 at {tf32_bound / times['tf32']:.3f}")
+
+    t = time.perf_counter()
+    budget = card_pred.predict_from_coverage(cov_dir, PRV_CASE)
+    sync()
+    call_s = time.perf_counter() - t
+    gap = abs(card_value - cpu_value)
+    frac = card_value - math.floor(card_value)
+    log(f"predict_from_coverage: budget {budget} from {card_value:.6f} in {call_s:.3f} s (PNG decode cached by "
+        f"the loader after the first read)")
+    if not cfg.min_label_value <= budget <= cfg.max_label_value or budget != int(np.round(card_value)):
+        raise SystemExit("the budget is not the rounded continuous value in the label range")
+    if abs(frac - 0.5) > max(gap, PRV_LOGIT_ATOL * 45 / 4):
+        if budget != int(np.round(cpu_value)):
+            raise SystemExit("the card's budget is not the CPU's")
+        log(f"the budget equals the CPU's ({abs(frac - 0.5):.4f} from a half-integer, the card-CPU gap {gap:.2e})")
+    else:
+        log(f"the continuous value lies {abs(frac - 0.5):.2e} from a half-integer, inside the card-CPU gap "
+            f"{gap:.2e}: the integer budget is not compared")
+    profile_device(lambda: card_pred.predict_from_coverage(cov_dir, PRV_CASE),
+                   f"one predict_from_coverage ({len(PRV_CASE)} views, f32 convolutions)", call_s, top=12)
+    return card_pred, budget
+
+
+@contextlib.contextmanager
+def stage_timers(stages: dict):
+    """Host-clock time of mode 21's stages, each ended by a sync: object
+    load, each coverage set (its view-space file written first where it is
+    missing), predict, TSP, view-space load, train and eval."""
+    def wrap(fn, label):
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            key = label(*a, **kw) if callable(label) else label
+            stages[key] = stages.get(key, 0.0) + time.perf_counter() - t
+            return out
+        return timed
+
+    # the modes import these two when they run, from their modules
+    saved = [(object_setup_mod, "load_object"), (coverage_mod, "get_coverage"), (nbv_mod, "train_nerf"),
+             (nbv_mod, "eval_nerf"), (nbv_mod, "_ensure_viewspace"), (GlobalPathPlanner, "solve")]
+    old = [getattr(o, n) for o, n in saved]
+    object_setup_mod.load_object = wrap(old[0], "object load")
+    coverage_mod.get_coverage = wrap(old[1], lambda scene, cfg, n, **kw: f"coverage {n}")
+    nbv_mod.train_nerf = wrap(old[2], "train")
+    nbv_mod.eval_nerf = wrap(old[3], "eval")
+    nbv_mod._ensure_viewspace = wrap(old[4], "budget view space")
+    GlobalPathPlanner.solve = wrap(old[5], lambda self: f"TSP over {len(self.view_subset)} views")
+    try:
+        yield
+    finally:
+        for (o, n), f in zip(saved, old):
+            setattr(o, n, f)
+
+
+def mode21_config(root: str):
+    """Phase 12's pipeline config: phase 10's object, model files and view
+    spaces in a workspace of its own, the object's accepted size copied in."""
+    import shutil
+
+    cfg10, _, _ = coverage_config(root)
+    cfg = cfg10.replace(workspace=os.path.join(root, "prv_ws"), evaluate=True)
+    os.makedirs(cfg.gt_path, exist_ok=True)
+    shutil.copy(os.path.join(cfg10.gt_path, "size.txt"), cfg.gt_path)
+    return cfg
+
+
+def expected_eval_gathers(params, test_json: str, cfg: NerfConfig, dev) -> tuple:
+    """``row_gather`` launches of one voxel ``eval_nerf``, from the code.
+
+    ``api.eval_nerf`` renders the frames in groups of 8; at 1280 wide
+    ``render_views`` takes the tile path, where level 1 probes every ray of
+    the active 128-ray tiles against the pooled volume (no gather) and
+    compacts the survivors, which ``_probe_march`` takes in chunks of
+    ``_default_chunk`` rays, each chunk one level-2 probe gather and one
+    field gather.  How many rays survive level 1 is this run's data: the
+    probe is replayed here, group by group, and launches no gather (held).
+    Returns (launches, each group's survivors)."""
+    ds = load_dataset(test_json, with_images=False)
+    chunk = render_mod._default_chunk(cfg)
+    t = render_mod._RENDER_TILE
+    ct = max(chunk // t, 1)
+    before = row_gather.launches
+    with torch.no_grad():
+        aux = render_mod.build_render_aux(params, cfg)
+        d_cam = render_mod._pixel_dirs(ds.camera, dev)
+        survivors = []
+        for start in range(0, ds.n_frames, 8):
+            o = torch.as_tensor(ds.origins[start:start + 8], dtype=torch.float32, device=dev)
+            r = torch.as_tensor(ds.rotations[start:start + 8], dtype=torch.float32, device=dev)
+            npad = (-(o.shape[0] * d_cam.shape[0])) % t
+            od_t, order_t, n_act = render_mod._assemble_tiles(o, r, d_cam, t, npad)
+            n_act = int(n_act)
+            n1 = sum(int((render_mod._probe_tiles_l1(od_t, order_t[i:i + ct], cfg, aux)[:, 8] > 0.5).sum())
+                     for i in range(0, n_act, ct))
+            survivors.append(n1)
+    if row_gather.launches != before:
+        raise SystemExit("the level-1 replay launched a gather")
+    return 2 * sum(-(-n // chunk) for n in survivors), survivors
+
+
+def check_mode21_frames(renders: list, dev) -> None:
+    """K8's frames of every coverage set mode 21 rendered (first, middle and
+    last of each launch, kept from the launch's own output) bit-equal to
+    ``splat_plain`` on the same points, colours and poses: frames are
+    independent, so these few plain frames hold the F = 540 launch."""
+    for points, colors, c2w, intr, ps, n, keep, got in renders:
+        pts = _points(points, dev)
+        want = splat_plain(pts, _colors01(colors, len(pts), dev), _world_to_camera(c2w).to(dev), intr,
+                           int(ps) if ps else 5)
+        same = torch.equal(got, want)
+        log(f"K8 in mode 21, the {n}-frame launch: frames {keep} "
+            f"{'bit-equal' if same else 'DIFFERENT'} to splat_plain")
+        if not same:
+            raise SystemExit(f"K8's {n}-frame launch in mode 21 disagrees with splat_plain: "
+                             f"{int((got != want).any(-1).sum())} pixels differ")
+
+
+def phase_mode21(dev, root: str, pred: BudgetPredictor, budget: int, card: str) -> dict:
+    cfg = mode21_config(root)
+    nerf_cfg = NerfConfig(n_steps=cfg.n_steps)
+    log(f"== phase 12b: mode 21, method 4 (PVBCoverage): a {cfg.num_of_views}-view space, 5 init views, case "
+        f"{list(PRV_CASE)}, budget {budget}, the default voxel field {nerf_cfg.n_steps} steps, eval on 100 views")
+    wrappers = (hash_encode, hash_encode_backward, row_gather, row_scatter_add, splat, voxel_cast)
+    evals = []
+    real_eval = nbv_mod.eval_nerf
+
+    def recording_eval(params, test_json, ncfg=None):
+        before = row_gather.launches
+        out = real_eval(params, test_json, ncfg)
+        evals.append((params, test_json, ncfg, row_gather.launches - before))
+        return out
+
+    renders = []
+    real_render = coverage_mod.render_pointcloud_views
+
+    def recording_render(points, colors, c2ws, intr, point_size=None, device="cuda"):
+        out = real_render(points, colors, c2ws, intr, point_size=point_size, device=device)
+        keep = sorted({0, len(c2ws) // 2, len(c2ws) - 1})
+        renders.append((points, colors, np.asarray(c2ws)[keep], intr, point_size, len(c2ws), keep, out[keep]))
+        return out
+
+    stages = {}
+    nbv_mod.eval_nerf = recording_eval
+    coverage_mod.render_pointcloud_views = recording_render
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with stage_timers(stages):
+            paths = modes_mod.mode_view_planning(cfg, [cfg.name_of_pcd], method_ids=(4,), init_view_cases=(PRV_CASE,),
+                                                 predictor=pred, coverage_sizes=[5, budget, 100], device=dev)
+    finally:
+        nbv_mod.eval_nerf = real_eval
+        coverage_mod.render_pointcloud_views = real_render
+    sync()
+    wall = time.perf_counter() - t0
+    launched = {w.__name__: w.launches for w in wrappers}
+    log(f"mode 21 method 4: {wall:.2f} s; stages (host clock, each ended by a sync): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in stages.items()))
+    log("launches: " + ", ".join(f"{k} {v}" for k, v in launched.items()))
+
+    path = paths[0]
+    got_budget = int(open(os.path.join(path, "view_budget.txt")).read())
+    moves = sorted(int(f[:-4]) for f in os.listdir(os.path.join(path, "movement")) if f[0].isdigit())
+    ids = [int(open(os.path.join(path, "movement", f"{i}.txt")).read().split()[0]) for i in moves]
+    vs = ViewSpace(load_view_space(cfg.viewspace_path, budget), load_object(cfg, device=dev).points,
+                   cfg.view_space_radius)
+    top = vs.top_view_id()
+    order = [top] + ids
+    log(f"{path}: view_budget.txt {got_budget}, {len(moves)} moves, path {order}")
+    if got_budget != budget or moves != list(range(budget - 1)) or sorted(order) != list(range(budget)):
+        raise SystemExit("mode 21 did not plan the predicted budget as a path through every view from the top")
+
+    # launches, predicted from the code: K8 one per coverage set (540, 5, the
+    # budget's, 100; the size test does not run, size.txt is there), K9 none
+    # (no precept on this path), the training's gathers and scatter-adds from
+    # the config, the eval's gathers from the render's chunking of this run's
+    # level-1 survivors (expected_eval_gathers)
+    (params, test_json, ecfg, eval_g), = evals
+    want_e, survivors = expected_eval_gathers(params, test_json, ecfg or NerfConfig(), dev)
+    want_g, want_s = expected_train_launches(nerf_cfg)
+    want = {"hash_encode": 0, "hash_encode_backward": 0, "row_gather": want_g + want_e,
+            "row_scatter_add": want_s, "splat": 4, "voxel_cast": 0}
+    log(f"predicted launches: {want} (row_gather: train {want_g} + eval {want_e}, 2 a chunk of "
+        f"{render_mod._default_chunk(ecfg or NerfConfig())} level-1 survivors, {sum(survivors)} in "
+        f"{len(survivors)} groups of 8 frames: {survivors})")
+    if launched != want:
+        raise SystemExit("mode 21's launch counts are not the ones the code predicts")
+    # a second check: the same eval again launches the same gathers
+    before = row_gather.launches
+    metrics = real_eval(params, test_json, ecfg)
+    again_g = row_gather.launches - before
+    log(f"the eval again on the same field: {again_g} gathers (in the run {eval_g})")
+    if again_g != want_e or eval_g != want_e:
+        raise SystemExit("the eval's gathers are not the ones the code predicts")
+    check_mode21_frames(renders, dev)
+    del renders
+
+    saved = dict(line.split() for line in open(os.path.join(path, "metrics", f"{budget - 1}.txt")).read().splitlines())
+    base = black_psnr(load_dataset(test_json))
+    psnr = float(saved["PSNR"])
+    log(f"final eval on the 100-view set: PSNR {psnr:.3f} dB, SSIM {float(saved['SSIM']):.4f} (again: "
+        f"{metrics['PSNR']:.3f} dB); an all-black frame scores {base:.3f} dB (need >= {MODE21_PSNR_MARGIN_DB} dB above)")
+    if not (math.isfinite(psnr) and psnr >= base + MODE21_PSNR_MARGIN_DB):
+        raise SystemExit("mode 21's field does not beat a black frame by the margin")
+    return launched
+
+
+def numpy_choices(method: int, first: int, n_views: int, n_iter: int, seed: int, views=None, scene=None) -> list:
+    """Methods 0 and 1's choices drawn on the host as the reference draws
+    them (method 1's best-of-50 set ordered by the TSP on the CPU)."""
+    rng = np.random.default_rng(seed)
+    if method == 0:
+        chosen, seq = {first}, []
+        for _ in range(n_iter):
+            nxt = int(rng.integers(n_views))
+            while nxt in chosen:
+                nxt = int(rng.integers(n_views))
+            chosen.add(nxt)
+            seq.append(nxt)
+        return seq
+    best_set, best_dis = None, -np.inf
+    for _ in range(50):
+        ids = {first}
+        while len(ids) < n_iter + 1:
+            ids.add(int(rng.integers(n_views)))
+        pts = views[sorted(ids)]
+        dis = np.triu(np.linalg.norm(pts[:, None] - pts[None, :], axis=-1), 1).sum()
+        if dis > best_dis:
+            best_dis, best_set = dis, sorted(ids)
+    planner = GlobalPathPlanner(views, best_set, scene.view_space.object_center, scene.view_space.predicted_size,
+                                first, device="cpu")
+    planner.solve()
+    return planner.get_path_id_set()[1:]
+
+
+def phase_nbv_methods(dev, root: str, card: str) -> None:
+    cfg = mode21_config(root).replace(num_of_max_iteration=NBV_ITERATIONS, n_steps=NBV_STEPS, evaluate=False)
+    log(f"== phase 12c: methods 0-3 on the {cfg.num_of_views}-view space, test id {NBV_TEST_ID}: "
+        f"{NBV_ITERATIONS} iterations, {NBV_STEPS}-step NeRFs")
+    scene = load_object(cfg, device=dev)
+    init_vs = ViewSpace(_ensure_viewspace(cfg.viewspace_path, 5, dev), scene.points, cfg.view_space_radius)
+    first = scene.view_space.top_view_id()
+    n_views = len(scene.view_space)
+    for method in (0, 1, 2, 3):
+        mcfg = cfg.replace(method_of_IG=method)
+        runner = NBVRunner(mcfg, scene, device=dev)
+        runner.init_views = init_vs.views
+        row_gather.launches = row_scatter_add.launches = 0
+        t = time.perf_counter()
+        path = runner.nbv_loop(first, list(PRV_CASE), test_id=NBV_TEST_ID)
+        sync()
+        dt = time.perf_counter() - t
+        moves = sorted(int(f[:-4]) for f in os.listdir(os.path.join(path, "movement")) if f[0].isdigit())
+        ids = [int(open(os.path.join(path, "movement", f"{i}.txt")).read().split()[0]) for i in moves]
+        jsons = sorted(os.listdir(os.path.join(path, "json")))
+        log(f"method {method} ({nbv_mod.METHOD_NAMES[method]}): {dt:.2f} s, chose {ids}; {row_gather.launches} "
+            f"gathers, {row_scatter_add.launches} scatter-adds")
+        ok = (path.endswith(f"_m{method}_v{len(PRV_CASE)}_t{NBV_TEST_ID}") and moves == list(range(NBV_ITERATIONS))
+              and len(set(ids) | {first}) == NBV_ITERATIONS + 1
+              and jsons == [f"{i}.json" for i in range(NBV_ITERATIONS + 1)]
+              and os.path.exists(os.path.join(path, "run_time.txt")))
+        if not ok:
+            raise SystemExit(f"method {method}'s artifacts are not the reference's")
+        if method in (0, 1):
+            want = numpy_choices(method, first, n_views, NBV_ITERATIONS, cfg.seed, scene.view_space.views, scene)
+            if ids != list(want):
+                raise SystemExit(f"method {method} chose {ids}, the numpy draws {want}")
+        else:
+            members = cfg.replace(method_of_IG=method).ensemble_num_for_method
+            for it in range(NBV_ITERATIONS):
+                for e in range(members):
+                    shots = os.listdir(os.path.join(path, "render", str(it), f"ensemble_{e}"))
+                    if len(shots) != n_views - 1 - it:
+                        raise SystemExit(f"method {method}: {len(shots)} screenshots, expected {n_views - 1 - it}")
+            steps = expected_train_launches(runner.nerf_cfg)[1]
+            if row_scatter_add.launches != NBV_ITERATIONS * members * steps:
+                raise SystemExit(f"method {method} trained {row_scatter_add.launches // steps} NeRFs, expected "
+                                 f"{NBV_ITERATIONS * members}")
+
+
+def phase_prv(dev, root: str, kernels: list, card: str) -> None:
+    t_phase = time.perf_counter()
+    pred, budget = phase_prvnet(dev, root, card)
+    launched = phase_mode21(dev, root, pred, budget, card)
+    for k in kernels:
+        k["launches_mode21"] = launched[k["name"]]
+    del pred
+    phase_nbv_methods(dev, root, card)
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -2892,6 +3318,7 @@ def main() -> int:
         del vparams
         k_splat, k_cast = phase_coverage(dev, root, card)
         phase_batch(dev, root, source, k_gather, k_scatter, k_hash, k_bwd, single_ms, card)
+        phase_prv(dev, root, [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast], card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast]}))

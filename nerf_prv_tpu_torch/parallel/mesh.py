@@ -40,9 +40,11 @@ class Mesh:
 
 
 def _all_devices() -> List[torch.device]:
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_mesh: no CUDA card is visible; pass devices=['cpu'] to build a mesh on the CPU"
+        )
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def make_mesh(
@@ -50,7 +52,8 @@ def make_mesh(
     axis_sizes: Optional[Sequence[int]] = None,
     devices=None,
 ) -> Mesh:
-    """A mesh over ``devices`` (every CUDA card by default, else the CPU);
+    """A mesh over ``devices`` (every CUDA card by default; without a card
+    this raises, and a CPU mesh is asked for with ``devices=["cpu"]``);
     ``axis_sizes`` default to all devices on the first axis."""
     devices = list(devices) if devices is not None else _all_devices()
     devices = [torch.device(d) for d in devices]

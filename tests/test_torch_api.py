@@ -353,7 +353,8 @@ def test_render_video_and_run_mesh_and_video_arguments(voxel_scene, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every port module and chip_smoke import without jax or nerf_prv_tpu."""
+    """Every port module and chip_smoke import without jax, flax, optax,
+    torchvision or nerf_prv_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import nerf_prv_tpu_torch as p\n"
@@ -361,15 +362,18 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nerf_prv_tpu.'))"
-        " or m == 'nerf_prv_tpu' or m == 'optax' or m.startswith('optax.'))\n"
-        "assert len(names) >= 30, names\n"
+        " or m in ('nerf_prv_tpu', 'optax', 'flax', 'torchvision') or m.startswith(('optax.', 'flax.', 'torchvision.')))\n"
+        "assert len(names) >= 50, names\n"
         "assert {p.__name__ + s for s in ('.nerf.voxelfield', '.nerf.train', '.ops.row_gather', '.ops.row_scatter_add',"
         " '.ops.sorted_grad', '.ops.fused', '.nerf.extract', '.scene.ply', '.core.camera', '.core.config',"
         " '.viewspace.hemisphere', '.viewspace.novel', '.ops.splat', '.ops.voxel_cast', '.scene.render',"
         " '.scene.voxel', '.scene.mesh_sampling', '.scene.object_setup', '.runtime.native',"
         " '.pipeline.coverage', '.labeling.lognormal', '.labeling.labels', '.labeling.stats',"
         " '.labeling.dataset', '.planning.local_path', '.planning.tsp', '.parallel.mesh',"
-        " '.nerf.batch_train')} <= set(names)\n"
+        " '.nerf.batch_train', '.prvnet.convnextv2', '.prvnet.resnet', '.prvnet.model', '.prvnet.data',"
+        " '.prvnet.infer', '.pipeline.nbv', '.pipeline.compare', '.pipeline.modes', '.pipeline.cli',"
+        " '.utils.timing', '.utils.visualize', '.servers.infer_server', '.servers.train_server',"
+        " '.servers.run')} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )

@@ -361,3 +361,12 @@ def test_batched_params_carry_across(field, scenes):
         got = tapi.eval_nerf(tbt.slice_params(tp, i), test_json, tcfg)
         assert abs(got["PSNR"] - want["PSNR"]) <= 1e-3, (i, got, want)
         assert abs(got["SSIM"] - want["SSIM"]) <= 1e-5, (i, got, want)
+
+
+def test_make_mesh_without_a_card_asks_for_the_cpu(monkeypatch):
+    """No silent CPU fallback: without a card and without ``devices``,
+    ``make_mesh`` raises and names ``devices=["cpu"]``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"devices=\['cpu'\]"):
+        tmesh.make_mesh()
+    assert tmesh.make_mesh(("dp",), devices=["cpu"]).size == 1

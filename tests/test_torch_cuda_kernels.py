@@ -8,6 +8,8 @@ installed:
 Without a CUDA card every test skips: a CUDA kernel has no CPU mode.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -727,3 +729,33 @@ def test_voxel_cast_kernel_equals_plain_on_ray_kinds(cuda_device, kind, grid):
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
     if kind != "non_finite":
         assert 0.0 < float(got[0].float().mean()) < 1.0
+
+
+# PRVNet's forward on the card against the CPU, cuDNN's convolutions in full
+# float32 (the predictor's default): the logit of seeded weights whose every
+# layer is O(1), and the continuous budget
+PRV_LOGIT_TOL = 1e-4
+
+
+def test_budget_predictor_card_logit_matches_cpu(cuda_device):
+    from nerf_prv_tpu_torch.prvnet.infer import BudgetPredictor
+    from nerf_prv_tpu_torch.prvnet.model import make_pvbnet
+
+    gen = torch.Generator().manual_seed(0)
+    sd = {}
+    for k, v in make_pvbnet("convnextv2_atto").state_dict().items():
+        noise = torch.randn(v.shape, generator=gen)
+        if v.ndim >= 2 and not k.endswith(("grn.gamma", "grn.beta")):
+            sd[k] = noise / math.sqrt(v[0].numel())  # convolutions and linear layers, by fan-in
+        elif v.ndim == 1 and k.endswith("weight"):
+            sd[k] = 1 + 0.1 * noise  # the LayerNorms
+        else:
+            sd[k] = 0.05 * noise
+    views = np.random.default_rng(1).random((3, 128, 128, 3), dtype=np.float32)
+    card = BudgetPredictor(params=sd, arch="convnextv2_atto", crop=128)
+    cpu = BudgetPredictor(params=sd, arch="convnextv2_atto", crop=128, device="cpu")
+    assert card.device.type == "cuda"
+    a, b = float(card.logits(views)[0]), float(cpu.logits(views)[0])
+    assert abs(b) > 0.1  # a logit the encoder moves, not the head's bias alone
+    assert abs(a - b) <= PRV_LOGIT_TOL * max(1.0, abs(b)), (a, b)
+    assert abs(card.predict_value_from_arrays(views) - cpu.predict_value_from_arrays(views)) <= 45 / 4 * PRV_LOGIT_TOL
