@@ -67,7 +67,7 @@ Phases:
     object offset, which must fail; (c) two hash fields trained together
     for 150 steps, K1 and K1b counted per object; (d) 3,000 PSNR curves fit
     and labeled on the card against the CPU; (e) ``precompute_paths`` for
-    3..100 views on the port's view spaces, and the card's edge matrix
+    3..60 views on the port's view spaces, and the card's edge matrix
     against the float64 scalar local path;
 (12) the PRV experiment at full width: (a) PRVNet (ConvNeXt-V2 tiny, seeded
     random weights) predicts a view budget from the init views [0, 1, 3] of
@@ -85,8 +85,23 @@ Phases:
     survivors), the first, middle and last frames of each of K8's coverage
     launches (F = 540 among them) bit-equal to ``splat_plain``, each stage
     timed; (c) methods 0-3 on the same object at a cut depth
-    (2 iterations, 300-step NeRFs), their artifacts and methods 0 and 1's
-    choices held to the numpy draws.
+    (1 iteration, 300-step NeRFs), their artifacts and methods 0 and 1's
+    choices held to the numpy draws;
+(13) PRVNet training at full width (ConvNeXt-V2 tiny, 720x720, 5 views,
+    float32): (a) 24 seeded variants of phase 10's object through the
+    coverage path (the size test, 64-view sets, K8; one launch's frames
+    bit-equal to ``splat_plain``), labels fit on the card from synthetic
+    curves, ``build_dataset``; (b) the peak memory of micro-batches of 2, 4
+    and 8 objects, the largest under 70 GB taken, one optimizer application
+    of each model timed, profiled and beside its f32 bound, ``pretrain`` on
+    4 objects at batch 64; (c) ``train_regression`` 2 epochs at batch 16 from
+    the pretrain checkpoint, and one streaming epoch against one resident
+    epoch; (d) ``BudgetPredictor`` on the written ``best_checkpoint.msgpack``
+    against the trainer's eval step, the card against the CPU; (e) mode 21
+    method 4 through ``pipeline.cli.main`` with that checkpoint, its budget,
+    launches and PSNR held as in (12b).  Depth cuts: 24 objects, synthetic
+    labels, a regression batch of 16 (the micro-batch is the full
+    configuration's), pretraining on 4 objects, 1 and 2 epochs.
 Any failure exits non-zero.  The line before the last is the kernel table
 as JSON, the last line the device.  It imports nothing of JAX or of
 ``nerf_prv_tpu``.
@@ -175,8 +190,15 @@ from nerf_prv_tpu_torch.pipeline import nbv as nbv_mod  # noqa: E402
 from nerf_prv_tpu_torch.pipeline.coverage import generate_novel_sets, get_coverage  # noqa: E402
 from nerf_prv_tpu_torch.pipeline.nbv import NBVRunner  # noqa: E402
 from nerf_prv_tpu_torch.planning.tsp import GlobalPathPlanner  # noqa: E402
+from nerf_prv_tpu_torch.labeling.dataset import CATEGORY_PREFIXES, build_dataset, select_labels  # noqa: E402
+from nerf_prv_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from nerf_prv_tpu_torch.prvnet import train as prv_train_mod  # noqa: E402
+from nerf_prv_tpu_torch.prvnet.data import PVBDataset, PVBPretrainDataset, read_split  # noqa: E402
 from nerf_prv_tpu_torch.prvnet.infer import BudgetPredictor  # noqa: E402
-from nerf_prv_tpu_torch.prvnet.model import IMG_PATTERN, make_pvbnet  # noqa: E402
+from nerf_prv_tpu_torch.prvnet.model import IMG_PATTERN, make_pvbnet, make_pvbpretrain  # noqa: E402
+from nerf_prv_tpu_torch.prvnet.train import (  # noqa: E402
+    TrainConfig, load_checkpoint, pretrain, train_regression,
+)
 from nerf_prv_tpu_torch.planning.local_path import (  # noqa: E402
     CIRCLE_PATH, LINE_PATH, WRONG_PATH, local_path, pairwise_lengths,
 )
@@ -1920,10 +1942,12 @@ def phase_options(dev, root: str, train_json: str, vparams, vcfg, test_ds, card:
 # --- phase 10: the coverage-dataset path --------------------------------------
 
 
-def write_procedural_obj(path: str) -> None:
+def write_procedural_obj(path: str, seed=None) -> None:
     """A chair-like mesh in ShapeNet's frame (Y up, extent ~1.5): seat,
     cushion, back and four legs as boxes, each part with its own ``Kd``
-    colour from ``parts.mtl``."""
+    colour from ``parts.mtl``.  With a ``seed``, a variant: the width,
+    depth, leg length and back height scaled by 0.7-1.4 and every part's
+    colour drawn."""
     parts = [  # (material, Kd, lo, hi)
         ("seat", (0.75, 0.25, 0.1), (-0.4, 0.0, -0.4), (0.4, 0.08, 0.4)),
         ("cushion", (0.9, 0.8, 0.2), (-0.32, 0.08, -0.3), (0.32, 0.15, 0.34)),
@@ -1933,6 +1957,17 @@ def write_procedural_obj(path: str) -> None:
         ("legs", None, (-0.4, -0.6, 0.32), (-0.32, 0.0, 0.4)),
         ("legs", None, (0.32, -0.6, 0.32), (0.4, 0.0, 0.4)),
     ]
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        w, d, legs, back = rng.uniform(0.7, 1.4, 4)
+
+        def warp(p):
+            x, y, z = p
+            y = y * legs if y < 0 else (0.15 + (y - 0.15) * back if y > 0.15 else y)
+            return (x * w, y, z * d)
+
+        parts = [(name, None if kd is None else tuple(rng.uniform(0.05, 0.95, 3)), warp(lo), warp(hi))
+                 for name, kd, lo, hi in parts]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(os.path.join(os.path.dirname(path), "parts.mtl"), "w") as f:
         for name, kd, _, _ in parts:
@@ -2557,7 +2592,7 @@ FIT_DIFF_TOL = 1e-3
 # planning: every view-space size the pipeline ships, on view spaces the
 # port generates (2 restarts x 200 steps each); the card's edge matrix
 # against the float64 scalar local path (float32 rounding, the CPU tests' 1e-5)
-PLAN_SIZES = range(3, 101)
+PLAN_SIZES = range(3, 61)  # cut from 3..100 to leave phase 13 room in the smoke's time
 PLAN_RTOL = 1e-5
 
 
@@ -2757,9 +2792,10 @@ def robust_labels(curve, max_psnr):
     return gap, grad
 
 
-def phase_labeling(dev, card: str):
-    log(f"== phase 11d: labeling, {FIT_B} PSNR curves on {len(FIT_X)} view counts fit on the card and on the CPU")
-    rng = np.random.default_rng(0)
+def synthetic_curves(seed: int = 0) -> tuple:
+    """FIT_B noisy lognormal-CDF PSNR curves on FIT_X, their 100-view tops
+    and the noiseless truth as a function of the view counts."""
+    rng = np.random.default_rng(seed)
     y0, a = rng.uniform(8, 15, FIT_B), rng.uniform(10, 25, FIT_B)
     mu, sg = np.log(rng.uniform(6, 30, FIT_B)), rng.uniform(0.4, 1.3, FIT_B)
     erf = np.vectorize(math.erf)
@@ -2769,6 +2805,12 @@ def phase_labeling(dev, card: str):
 
     ys = truth(FIT_X.astype(np.float64)) + rng.normal(0, FIT_NOISE, (FIT_B, len(FIT_X)))
     tops = truth(np.array([100.0]))[:, 0] + rng.uniform(-0.2, 0.8, FIT_B)
+    return ys, tops, truth
+
+
+def phase_labeling(dev, card: str):
+    log(f"== phase 11d: labeling, {FIT_B} PSNR curves on {len(FIT_X)} view counts fit on the card and on the CPU")
+    ys, tops, truth = synthetic_curves()
     fit_batch(FIT_X, ys[:8], device=dev)  # warm up
     sync()
     t0 = time.perf_counter()
@@ -2872,7 +2914,7 @@ PRV_FEATURE_RTOL = 1e-4
 PRV_LOGIT_ATOL = 1e-4
 # TF32 convolutions against full float32 on the card: logged, not held
 MODE21_PSNR_MARGIN_DB = 15.0  # phase 5's margin over an all-black frame
-NBV_ITERATIONS = 2  # 12c: methods 0-3 at a cut depth
+NBV_ITERATIONS = 1  # 12c: methods 0-3 at a cut depth (cut from 2 to leave phase 13 room)
 NBV_STEPS = 300
 NBV_TEST_ID = 1  # no method-4 budget file for it: num_of_max_iteration applies
 
@@ -3067,28 +3109,30 @@ def expected_eval_gathers(params, test_json: str, cfg: NerfConfig, dev) -> tuple
     return 2 * sum(-(-n // chunk) for n in survivors), survivors
 
 
-def check_mode21_frames(renders: list, dev) -> None:
-    """K8's frames of every coverage set mode 21 rendered (first, middle and
-    last of each launch, kept from the launch's own output) bit-equal to
-    ``splat_plain`` on the same points, colours and poses: frames are
-    independent, so these few plain frames hold the F = 540 launch."""
+def check_mode21_frames(renders: list, dev, where: str = "mode 21") -> None:
+    """K8's frames of every coverage set mode 21 (or ``where``) rendered
+    (first, middle and last of each launch, kept from the launch's own
+    output) bit-equal to ``splat_plain`` on the same points, colours and
+    poses: frames are independent, so these few plain frames hold the
+    F = 540 launch."""
     for points, colors, c2w, intr, ps, n, keep, got in renders:
         pts = _points(points, dev)
         want = splat_plain(pts, _colors01(colors, len(pts), dev), _world_to_camera(c2w).to(dev), intr,
                            int(ps) if ps else 5)
         same = torch.equal(got, want)
-        log(f"K8 in mode 21, the {n}-frame launch: frames {keep} "
+        log(f"K8 in {where}, the {n}-frame launch: frames {keep} "
             f"{'bit-equal' if same else 'DIFFERENT'} to splat_plain")
         if not same:
-            raise SystemExit(f"K8's {n}-frame launch in mode 21 disagrees with splat_plain: "
+            raise SystemExit(f"K8's {n}-frame launch in {where} disagrees with splat_plain: "
                              f"{int((got != want).any(-1).sum())} pixels differ")
 
 
-def phase_mode21(dev, root: str, pred: BudgetPredictor, budget: int, card: str) -> dict:
-    cfg = mode21_config(root)
-    nerf_cfg = NerfConfig(n_steps=cfg.n_steps)
-    log(f"== phase 12b: mode 21, method 4 (PVBCoverage): a {cfg.num_of_views}-view space, 5 init views, case "
-        f"{list(PRV_CASE)}, budget {budget}, the default voxel field {nerf_cfg.n_steps} steps, eval on 100 views")
+def drive_mode21(call, record_frames: bool) -> tuple:
+    """Run ``call()`` (one mode-21 run) with every wrapper's launch count set
+    to 0 just before, the stages timed (``stage_timers``), each
+    ``eval_nerf`` recorded with its gathers and, with ``record_frames``, the
+    first, middle and last frame of each K8 coverage launch kept.  Returns
+    (call's result, launches, evals, renders, stages, wall)."""
     wrappers = (hash_encode, hash_encode_backward, row_gather, row_scatter_add, splat, voxel_cast)
     evals = []
     real_eval = nbv_mod.eval_nerf
@@ -3104,8 +3148,9 @@ def phase_mode21(dev, root: str, pred: BudgetPredictor, budget: int, card: str) 
 
     def recording_render(points, colors, c2ws, intr, point_size=None, device="cuda"):
         out = real_render(points, colors, c2ws, intr, point_size=point_size, device=device)
-        keep = sorted({0, len(c2ws) // 2, len(c2ws) - 1})
-        renders.append((points, colors, np.asarray(c2ws)[keep], intr, point_size, len(c2ws), keep, out[keep]))
+        if record_frames:
+            keep = sorted({0, len(c2ws) // 2, len(c2ws) - 1})
+            renders.append((points, colors, np.asarray(c2ws)[keep], intr, point_size, len(c2ws), keep, out[keep]))
         return out
 
     stages = {}
@@ -3116,19 +3161,25 @@ def phase_mode21(dev, root: str, pred: BudgetPredictor, budget: int, card: str) 
     t0 = time.perf_counter()
     try:
         with stage_timers(stages):
-            paths = modes_mod.mode_view_planning(cfg, [cfg.name_of_pcd], method_ids=(4,), init_view_cases=(PRV_CASE,),
-                                                 predictor=pred, coverage_sizes=[5, budget, 100], device=dev)
+            out = call()
     finally:
         nbv_mod.eval_nerf = real_eval
         coverage_mod.render_pointcloud_views = real_render
     sync()
     wall = time.perf_counter() - t0
-    launched = {w.__name__: w.launches for w in wrappers}
-    log(f"mode 21 method 4: {wall:.2f} s; stages (host clock, each ended by a sync): " + ", ".join(
-        f"{k} {v:.2f} s" for k, v in stages.items()))
-    log("launches: " + ", ".join(f"{k} {v}" for k, v in launched.items()))
+    return out, {w.__name__: w.launches for w in wrappers}, evals, renders, stages, wall
 
-    path = paths[0]
+
+def check_mode21(dev, cfg, path: str, budget: int, launched: dict, evals: list, renders, k8: int,
+                 nerf_cfg: NerfConfig) -> float:
+    """Mode 21 method 4's artifacts in ``path``: the planned budget as a path
+    through every view from the top, the launches the code predicts (K8
+    ``k8``, one per coverage set rendered; K9 none, as no ``precept`` runs on
+    this path; the training's gathers and scatter-adds from the config; the
+    eval's gathers from the render's chunking of this run's level-1
+    survivors, ``expected_eval_gathers``), the eval's gathers again on a
+    re-run, the kept K8 frames (``renders``, where given) bit-equal to
+    ``splat_plain``, and the PSNR's margin over black.  Returns the PSNR."""
     got_budget = int(open(os.path.join(path, "view_budget.txt")).read())
     moves = sorted(int(f[:-4]) for f in os.listdir(os.path.join(path, "movement")) if f[0].isdigit())
     ids = [int(open(os.path.join(path, "movement", f"{i}.txt")).read().split()[0]) for i in moves]
@@ -3140,16 +3191,11 @@ def phase_mode21(dev, root: str, pred: BudgetPredictor, budget: int, card: str) 
     if got_budget != budget or moves != list(range(budget - 1)) or sorted(order) != list(range(budget)):
         raise SystemExit("mode 21 did not plan the predicted budget as a path through every view from the top")
 
-    # launches, predicted from the code: K8 one per coverage set (540, 5, the
-    # budget's, 100; the size test does not run, size.txt is there), K9 none
-    # (no precept on this path), the training's gathers and scatter-adds from
-    # the config, the eval's gathers from the render's chunking of this run's
-    # level-1 survivors (expected_eval_gathers)
     (params, test_json, ecfg, eval_g), = evals
     want_e, survivors = expected_eval_gathers(params, test_json, ecfg or NerfConfig(), dev)
     want_g, want_s = expected_train_launches(nerf_cfg)
     want = {"hash_encode": 0, "hash_encode_backward": 0, "row_gather": want_g + want_e,
-            "row_scatter_add": want_s, "splat": 4, "voxel_cast": 0}
+            "row_scatter_add": want_s, "splat": k8, "voxel_cast": 0}
     log(f"predicted launches: {want} (row_gather: train {want_g} + eval {want_e}, 2 a chunk of "
         f"{render_mod._default_chunk(ecfg or NerfConfig())} level-1 survivors, {sum(survivors)} in "
         f"{len(survivors)} groups of 8 frames: {survivors})")
@@ -3157,13 +3203,13 @@ def phase_mode21(dev, root: str, pred: BudgetPredictor, budget: int, card: str) 
         raise SystemExit("mode 21's launch counts are not the ones the code predicts")
     # a second check: the same eval again launches the same gathers
     before = row_gather.launches
-    metrics = real_eval(params, test_json, ecfg)
+    metrics = nbv_mod.eval_nerf(params, test_json, ecfg)
     again_g = row_gather.launches - before
     log(f"the eval again on the same field: {again_g} gathers (in the run {eval_g})")
     if again_g != want_e or eval_g != want_e:
         raise SystemExit("the eval's gathers are not the ones the code predicts")
-    check_mode21_frames(renders, dev)
-    del renders
+    if renders is not None:
+        check_mode21_frames(renders, dev)
 
     saved = dict(line.split() for line in open(os.path.join(path, "metrics", f"{budget - 1}.txt")).read().splitlines())
     base = black_psnr(load_dataset(test_json))
@@ -3172,6 +3218,24 @@ def phase_mode21(dev, root: str, pred: BudgetPredictor, budget: int, card: str) 
         f"{metrics['PSNR']:.3f} dB); an all-black frame scores {base:.3f} dB (need >= {MODE21_PSNR_MARGIN_DB} dB above)")
     if not (math.isfinite(psnr) and psnr >= base + MODE21_PSNR_MARGIN_DB):
         raise SystemExit("mode 21's field does not beat a black frame by the margin")
+    return psnr
+
+
+def phase_mode21(dev, root: str, pred: BudgetPredictor, budget: int, card: str) -> dict:
+    cfg = mode21_config(root)
+    nerf_cfg = NerfConfig(n_steps=cfg.n_steps)
+    log(f"== phase 12b: mode 21, method 4 (PVBCoverage): a {cfg.num_of_views}-view space, 5 init views, case "
+        f"{list(PRV_CASE)}, budget {budget}, the default voxel field {nerf_cfg.n_steps} steps, eval on 100 views")
+    paths, launched, evals, renders, stages, wall = drive_mode21(
+        lambda: modes_mod.mode_view_planning(cfg, [cfg.name_of_pcd], method_ids=(4,), init_view_cases=(PRV_CASE,),
+                                             predictor=pred, coverage_sizes=[5, budget, 100], device=dev),
+        record_frames=True)
+    log(f"mode 21 method 4: {wall:.2f} s; stages (host clock, each ended by a sync): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in stages.items()))
+    log("launches: " + ", ".join(f"{k} {v}" for k, v in launched.items()))
+    # K8: one launch per coverage set (540, 5, the budget's, 100; the size
+    # test does not run, size.txt is there)
+    check_mode21(dev, cfg, paths[0], budget, launched, evals, renders, 4, nerf_cfg)
     return launched
 
 
@@ -3259,6 +3323,396 @@ def phase_prv(dev, root: str, kernels: list, card: str) -> None:
     log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 13: PRVNet training at full width: rendered dataset, pretrain, train, checkpoint, mode 21 -----
+
+TRAIN_CELLS = 8  # (category, label) cells of the split
+TRAIN_PER_CELL = 3  # the holdout split sends two of a cell to train and one to val: 16 + 8 objects
+TRAIN_VIEWS = 64  # each object's coverage set: the pretrain dataset's view space
+TRAIN_SIZE = 720  # the crop PRVNet trains on (TrainConfig.image_size)
+PRETRAIN_OBJECTS = 4  # 4 x 64 = 256 single-view samples, 4 applications at the reference's batch of 64
+PRETRAIN_BATCH = 64
+REG_BATCH = 16  # cut from the reference's 64; the micro-batch is the full configuration's
+REG_EPOCHS = 2
+MICRO_OBJECTS = (2, 4, 8)  # regression micro-batches whose peak memory is measured
+MICRO_MEM_LIMIT = 70e9  # bytes: the largest measured micro-batch under this is trained with
+# one streaming epoch against one resident epoch from the same weights and rng:
+# the epoch's loss (all its micro-steps precede its one application) relative,
+# and the val metrics after the application, where Adam's sign for float-noise
+# gradients may differ
+STREAM_LOSS_RTOL = 1e-4
+STREAM_VAL_ATOL = 0.05
+# the predictor against the trainer's eval step on the same checkpoint, in
+# budget units: other micro-batch compositions, maybe other cuDNN algorithms
+SERVE_BUDGET_ATOL = 1e-3
+TRAIN_FIELDS = {"epoch", "train_loss", "accuracy", "l1_mean", "l1_std"}
+
+
+def prv_train_labels(dev) -> tuple:
+    """Labels for the TRAIN_CELLS x TRAIN_PER_CELL objects from phase 11d's
+    synthetic curves (another seed), fit on the card: TRAIN_CELLS labels that
+    TRAIN_PER_CELL usable curves share, spread over the range.  Returns (each
+    object's LabelResult, in cell order, and the cells' labels)."""
+    ys, tops, _ = synthetic_curves(seed=1)
+    results = fit_objects(FIT_X, ys, tops, device=dev)
+    by_label = {}
+    for i, label in select_labels([str(i) for i in range(FIT_B)], results).items():
+        by_label.setdefault(label, []).append(int(i))
+    shared = sorted(label for label, ids in by_label.items() if len(ids) >= TRAIN_PER_CELL)
+    if len(shared) < TRAIN_CELLS:
+        raise SystemExit(f"only {len(shared)} labels have {TRAIN_PER_CELL} usable curves")
+    picked = [shared[round(i * (len(shared) - 1) / (TRAIN_CELLS - 1))] for i in range(TRAIN_CELLS)]
+    return [results[by_label[label][j]] for label in picked for j in range(TRAIN_PER_CELL)], picked
+
+
+def render_train_objects(dev, ws: str, vs_dir: str, names: list) -> tuple:
+    """Each object a seeded variant of phase 10's OBJ, sampled to a PLY (on
+    four host threads, ahead of the card), loaded with the size test and
+    rendered as its TRAIN_VIEWS-view coverage set, as mode 3 does.  Returns
+    (size-test launches, the first object's K8 frames kept, stage walls)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def cfg_of(i):
+        return Config(workspace=ws, model_path=os.path.join(ws, "models"), viewspace_path=vs_dir,
+                      name_of_pcd=names[i], is_shape_net=True, camera=CAMERA, seed=i)
+
+    def sample(i):
+        obj = os.path.join(ws, "mesh", names[i], "model_normalized.obj")
+        write_procedural_obj(obj, seed=i + 1)
+        ply = os.path.join(cfg_of(i).model_path, "ShapeNet", names[i] + ".ply")
+        t = time.perf_counter()
+        if not sample_and_voxelize(obj, ply, n_points=OBJ_POINTS, grid_resolution=OBJ_GRID):
+            raise SystemExit(f"sample_and_voxelize wrote nothing for {names[i]}")
+        return time.perf_counter() - t
+
+    tries = [0]
+    real_rate = object_setup_mod._size_test_rate
+    renders = []
+    real_render = coverage_mod.render_pointcloud_views
+
+    def counting_rate(*a, **kw):
+        tries[0] += 1
+        return real_rate(*a, **kw)
+
+    def recording_render(points, colors, c2ws, intr, point_size=None, device="cuda"):
+        out = real_render(points, colors, c2ws, intr, point_size=point_size, device=device)
+        if not renders:
+            keep = sorted({0, len(c2ws) // 2, len(c2ws) - 1})
+            renders.append((points, colors, np.asarray(c2ws)[keep], intr, point_size, len(c2ws), keep, out[keep]))
+        return out
+
+    walls = {"sample (host threads)": 0.0, "load_object": 0.0, "get_coverage": 0.0}
+    object_setup_mod._size_test_rate = counting_rate
+    coverage_mod.render_pointcloud_views = recording_render
+    try:
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            futures = [pool.submit(sample, i) for i in range(len(names))]
+            for i, fut in enumerate(futures):
+                walls["sample (host threads)"] += fut.result()
+                t = time.perf_counter()
+                scene = load_object(cfg_of(i), device=dev)
+                sync()
+                walls["load_object"] += time.perf_counter() - t
+                if not scene.ok:
+                    raise SystemExit(f"{names[i]} failed the size test")
+                t = time.perf_counter()
+                get_coverage(scene, cfg_of(i), TRAIN_VIEWS, device=dev)
+                walls["get_coverage"] += time.perf_counter() - t
+    finally:
+        object_setup_mod._size_test_rate = real_rate
+        coverage_mod.render_pointcloud_views = real_render
+    return tries[0], renders, walls
+
+
+def micro_batch_peak(dev, mesh, objects: int) -> int:
+    """torch.cuda.max_memory_allocated over one regression application of
+    ``objects`` objects x 5 views at 720x720 (a fresh tiny PVBNet, its AdamW
+    state included)."""
+    model = prv_train_mod.init_model(TrainConfig(arch=PRV_ARCH), 5).to(dev)
+    step = prv_train_mod.make_train_step(model, TrainConfig(arch=PRV_ARCH, batch_size=objects), mesh=mesh)
+    views = torch.rand((objects, 5, TRAIN_SIZE, TRAIN_SIZE, 3), device=dev)
+    labels = torch.full((objects,), 30.0, device=dev)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    step(views, labels)
+    sync()
+    return torch.cuda.max_memory_allocated()
+
+
+def time_applications(dev, mesh, model, cfg: TrainConfig, n_views, card: str, label: str, apps: int = 2) -> tuple:
+    """Host-clock time of one optimizer application (``accum_steps``
+    micro-steps on uint8 views resident on the card, divided there, as the
+    resident trainer feeds them), ended by a sync, after one warm-up
+    application; images/s; the f32 bound from the model's counted MACs
+    (training about 3x the forward); the device's busy share of one
+    profiled application."""
+    step = prv_train_mod.make_train_step(model, cfg, mesh=mesh)
+    shape = (cfg.micro_batch,) + ((n_views,) if n_views else ()) + (cfg.image_size, cfg.image_size, 3)
+    views = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev)
+    labels = torch.full((cfg.micro_batch,), 30.0, device=dev)
+
+    def application():
+        for _ in range(cfg.accum_steps):
+            step(views.float() / 255.0, labels)
+
+    application()
+    sync()
+    t = time.perf_counter()
+    for _ in range(apps):
+        application()
+    sync()
+    dt = (time.perf_counter() - t) / apps
+    images = cfg.batch_size * (n_views or 1)
+    macs = count_macs(model, views[:1].float())
+    bound = 3 * 2 * macs * cfg.batch_size / F32_OPS_PER_S
+    log(f"{label}: one application ({cfg.accum_steps} micro-steps of {cfg.micro_batch} x {n_views or 1} images, "
+        f"{images} images) {dt:.3f} s on the host clock = {images / dt:.1f} images/s ({card}); forward "
+        f"{macs / (n_views or 1) / 1e9:.2f} GMAC an image, training ~3x: f32 bound {bound:.3f} s "
+        f"({bound / images * 1e3:.2f} ms an image at 67 TFLOP/s), the application at {bound / dt:.3f} of it")
+    profile_device(application, f"{label}, one application", dt, top=10)
+    return dt, images / dt, bound
+
+
+def prv_train_mode21_config(root: str) -> tuple:
+    """Phase 12's workspace for mode 21 through the CLI (phase 10's object,
+    its PLY and view spaces; the coverage sets already rendered there are
+    kept, as a user's workspace keeps them, and phase 12b's method-4
+    experiment is removed so that the CLI plans anew) and the YAML that
+    points the CLI there (``evaluate`` on, so the field is scored)."""
+    import shutil
+
+    cfg12 = mode21_config(root)
+    yaml_path = os.path.join(root, "prv_train_mode21.yaml")
+    camera = "".join(f"color_{k}: {getattr(CAMERA, k)}\n" for k in
+                     ("width", "height", "fx", "fy", "ppx", "ppy", "model", "k1", "k2", "k3", "p1", "p2"))
+    camera += f"depth_scale: {CAMERA.depth_scale}\n"
+    with open(yaml_path, "w") as f:
+        f.write(f'%YAML:1.0\npre_path: "{cfg12.workspace}"\nmodel_path: "{cfg12.model_path}"\n'
+                f'viewspace_path: "{cfg12.viewspace_path}"\nevaluate: 1\n{camera}')
+    cfg = Config.from_yaml(yaml_path).replace(name_of_pcd=OBJ_NAME, method_of_IG=4)
+    if cfg.camera != CAMERA or cfg.gt_path != cfg12.gt_path:
+        raise SystemExit(f"the YAML's config {cfg} is not phase 12's {cfg12}")
+    done = f"{cfg.save_path}_v{len(PRV_CASE)}_t0"
+    if os.path.exists(done):
+        shutil.rmtree(done)
+    return cfg, yaml_path
+
+
+def read_log(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_prv_train(dev, root: str, kernels: list, card: str) -> None:
+    from nerf_prv_tpu_torch.pipeline import cli as pipeline_cli
+
+    t_phase = time.perf_counter()
+    n_obj = TRAIN_CELLS * TRAIN_PER_CELL
+    log(f"== phase 13: PRVNet training at full width: {n_obj} objects rendered through K8, {PRV_ARCH} pretrained "
+        f"and trained at {TRAIN_SIZE}x{TRAIN_SIZE} in float32, its checkpoint served and run through mode 21's CLI")
+    mesh = make_mesh(devices=[dev])
+    ws = os.path.join(root, "prv_train_ws")
+    ds_root = os.path.join(ws, "pvb_dataset")
+    walls = {}
+
+    # (a) the dataset: labels, objects, coverage sets, pvb_dataset/
+    log(f"-- 13a: {n_obj} objects, {TRAIN_VIEWS}-view coverage sets, labels from synthetic curves fit on the card")
+    wrappers = (hash_encode, hash_encode_backward, row_gather, row_scatter_add, splat, voxel_cast)
+    for w in wrappers:
+        w.launches = 0
+    t = time.perf_counter()
+    results, picked = prv_train_labels(dev)
+    walls["labels"] = time.perf_counter() - t
+    names = [f"{CATEGORY_PREFIXES[c]}_{j}" for c in range(TRAIN_CELLS) for j in range(TRAIN_PER_CELL)]
+    t = time.perf_counter()
+    tries, renders, obj_walls = render_train_objects(dev, ws, coverage_config(root)[0].viewspace_path, names)
+    walls["objects"] = time.perf_counter() - t
+    t = time.perf_counter()
+    split = build_dataset(ws, names, results, n_views=TRAIN_VIEWS, split="holdout")
+    walls["build_dataset"] = time.perf_counter() - t
+    launched_a = {w.__name__: w.launches for w in wrappers}
+    log(f"objects: {walls['objects']:.2f} s (" + ", ".join(f"{k} {v:.2f} s" for k, v in obj_walls.items())
+        + f"); labels {walls['labels']:.3f} s, cells' labels {picked}; build_dataset {walls['build_dataset']:.2f} s")
+    log(f"launches: " + ", ".join(f"{k} {v}" for k, v in launched_a.items()) + f" ({tries} size tries + {n_obj} "
+        f"coverage sets)")
+    if launched_a != {"hash_encode": 0, "hash_encode_backward": 0, "row_gather": 0, "row_scatter_add": 0,
+                      "splat": tries + n_obj, "voxel_cast": 0}:
+        raise SystemExit("the dataset's launches are not one K8 launch a size try and a coverage set")
+    check_mode21_frames(renders, dev, where=f"the dataset ({names[0]})")
+    del renders
+    train, val = split["train"], split["val"]
+    log(f"split (holdout): {len(train)} train, {len(val)} val; labels {split['labels']}")
+    if len(train) != 2 * TRAIN_CELLS or len(val) != TRAIN_CELLS:
+        raise SystemExit("the holdout split is not two train and one val object a cell")
+    for name in names:
+        d = os.path.join(ds_root, name)
+        pngs = [f for f in os.listdir(d) if f.startswith("rgbaClip_")]
+        if len(pngs) != TRAIN_VIEWS or int(open(os.path.join(d, "view_budget.txt")).read()) != split["labels"][name]:
+            raise SystemExit(f"{d} lacks its {TRAIN_VIEWS} views or its label")
+    pre_split = os.path.join(ds_root, "pretrain_split.txt")
+    with open(pre_split, "w") as f:
+        f.write("\n".join(sorted(train)[:PRETRAIN_OBJECTS]) + "\n")
+    train_split, val_split = os.path.join(ds_root, "train_split.txt"), os.path.join(ds_root, "val_split.txt")
+
+    # (b) the micro-batch the card holds, timing, pretrain
+    log(f"-- 13b: peak memory of one regression application for micro-batches of {list(MICRO_OBJECTS)} objects "
+        f"x 5 views at {TRAIN_SIZE}x{TRAIN_SIZE}, f32 ({card}; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated before)")
+    peaks = {}
+    total = torch.cuda.get_device_properties(dev).total_memory
+    for m in MICRO_OBJECTS:
+        if len(peaks) >= 2:
+            a, b = sorted(peaks)[-2:]
+            guess = peaks[b] + (peaks[b] - peaks[a]) * (m - b) / (b - a)
+            if guess > total:
+                log(f"  {m} objects ({5 * m} images): not run, the line through {a} and {b} objects gives "
+                    f"{guess / 1e9:.1f} GB, more than the card's {total / 1e9:.1f}")
+                continue
+        try:
+            peaks[m] = micro_batch_peak(dev, mesh, m)
+            log(f"  {m} objects ({5 * m} images): peak {peaks[m] / 1e9:.2f} GB "
+                f"({peaks[m] / (5 * m) / 1e9:.2f} GB an image)")
+        except torch.cuda.OutOfMemoryError:
+            log(f"  {m} objects ({5 * m} images): out of memory")
+        torch.cuda.empty_cache()
+    micro = max(m for m, p in peaks.items() if p <= MICRO_MEM_LIMIT)
+    pre_micro = max(d for d in range(1, PRETRAIN_BATCH + 1) if PRETRAIN_BATCH % d == 0 and d <= 5 * micro)
+    cfg_reg = TrainConfig(arch=PRV_ARCH, image_size=TRAIN_SIZE, batch_size=REG_BATCH, accum_steps=REG_BATCH // micro,
+                          epochs=REG_EPOCHS)
+    cfg_pre = TrainConfig(arch=PRV_ARCH, image_size=TRAIN_SIZE, batch_size=PRETRAIN_BATCH,
+                          accum_steps=PRETRAIN_BATCH // pre_micro, epochs=1)
+    log(f"micro-batch: {micro} objects ({5 * micro} images, peak {peaks[micro] / 1e9:.2f} GB <= "
+        f"{MICRO_MEM_LIMIT / 1e9:.0f} GB): regression batch {REG_BATCH} = {cfg_reg.accum_steps} x {micro}; "
+        f"pretrain batch {PRETRAIN_BATCH} = {cfg_pre.accum_steps} x {pre_micro} images")
+    reg_s, reg_ips, reg_bound = time_applications(dev, mesh, prv_train_mod.init_model(cfg_reg, 5).to(dev), cfg_reg, 5,
+                                                  card, "regression (PVBNet, 5 views)")
+    pre_model = make_pvbpretrain(PRV_ARCH).to(dev)
+    pre_s, pre_ips, pre_bound = time_applications(dev, mesh, pre_model, cfg_pre, None, card,
+                                                  "pretrain (PVBPretrain, single views)")
+    del pre_model
+    torch.cuda.empty_cache()
+
+    log(f"pretrain on {PRETRAIN_OBJECTS} train objects x {TRAIN_VIEWS} views, batch {PRETRAIN_BATCH}, 1 epoch")
+    pre_dir = os.path.join(root, "prv_pretrain")
+    pre_ds = PVBPretrainDataset(ds_root, pre_split, viewspace_size=TRAIN_VIEWS, crop=TRAIN_SIZE)
+    if not prv_train_mod._use_resident(cfg_pre, pre_ds, 1, mesh):
+        raise SystemExit("the pretrain split does not take the resident path")
+    t = time.perf_counter()
+    _, pre_best = pretrain(ds_root, pre_split, None, cfg=cfg_pre, checkpoint_dir=pre_dir, mesh=mesh,
+                           viewspace_size=TRAIN_VIEWS)
+    sync()
+    walls["pretrain"] = time.perf_counter() - t
+    pre_path = os.path.join(pre_dir, "best_pretrain_checkpoint.msgpack")
+    pre_log = read_log(os.path.join(pre_dir, "pretrain_log.jsonl"))
+    log(f"pretrain: {walls['pretrain']:.2f} s for {len(pre_ds)} samples, {len(pre_ds) // PRETRAIN_BATCH} "
+        f"applications; log {pre_log}")
+    if not (os.path.exists(pre_path) and len(pre_log) == 1 and set(pre_log[0]) == TRAIN_FIELDS
+            and math.isfinite(pre_log[0]["train_loss"]) and math.isfinite(pre_best["l1_mean"])):
+        raise SystemExit("pretrain wrote no checkpoint or no finite log line")
+    torch.cuda.empty_cache()
+
+    # (c) train from the pretrained encoder; one streaming against one resident epoch
+    log(f"-- 13c: train_regression, {len(train)} train and {len(val)} val objects x 5 views, batch {REG_BATCH}, "
+        f"{REG_EPOCHS} epochs, from {os.path.basename(pre_path)}")
+    ckpt = os.path.join(root, "prv_train")
+    t = time.perf_counter()
+    _, best = train_regression(ds_root, train_split, val_split, cfg=cfg_reg, pattern=IMG_PATTERN[4],
+                               checkpoint_dir=ckpt, mesh=mesh, premodel_file=pre_path)
+    sync()
+    walls["train_regression"] = time.perf_counter() - t
+    best_path = os.path.join(ckpt, "best_checkpoint.msgpack")
+    reg_log = read_log(os.path.join(ckpt, "log.jsonl"))
+    log(f"train_regression: {walls['train_regression']:.2f} s; log {reg_log}; best {best}")
+    if not (os.path.exists(best_path) and [l["epoch"] for l in reg_log] == list(range(REG_EPOCHS))
+            and all(set(l) == TRAIN_FIELDS and math.isfinite(l["train_loss"]) for l in reg_log)):
+        raise SystemExit("train_regression wrote no checkpoint or not both epochs' finite log lines")
+    torch.cuda.empty_cache()
+    epoch = {}
+    for resident in (True, False):
+        t = time.perf_counter()
+        train_regression(ds_root, train_split, val_split,
+                         cfg=dataclasses.replace(cfg_reg, epochs=1, device_data=resident), pattern=IMG_PATTERN[4],
+                         checkpoint_dir=os.path.join(root, f"prv_epoch_{resident}"), mesh=mesh, premodel_file=pre_path)
+        sync()
+        epoch[resident] = read_log(os.path.join(root, f"prv_epoch_{resident}", "log.jsonl"))[0]
+        log(f"one {'resident' if resident else 'streaming'} epoch: {time.perf_counter() - t:.2f} s, {epoch[resident]}")
+        torch.cuda.empty_cache()
+    d_loss = abs(epoch[True]["train_loss"] - epoch[False]["train_loss"]) / abs(epoch[False]["train_loss"])
+    d_val = max(abs(epoch[True][k] - epoch[False][k]) for k in ("l1_mean", "l1_std"))
+    log(f"resident against streaming: train loss {d_loss:.3e} relative (need <= {STREAM_LOSS_RTOL}), val l1 "
+        f"{d_val:.3e} (need <= {STREAM_VAL_ATOL})")
+    if d_loss > STREAM_LOSS_RTOL or d_val > STREAM_VAL_ATOL:
+        raise SystemExit("the resident and the streaming epoch disagree")
+
+    # (d) serve the checkpoint: the predictor against the trainer's eval step, the card against the CPU
+    log(f"-- 13d: BudgetPredictor on {os.path.basename(best_path)}, the {len(val)} val objects x 5 views")
+    pred = BudgetPredictor(best_path, arch=PRV_ARCH, crop=TRAIN_SIZE, device=dev)
+    val_names = read_split(val_split)
+    values = np.array([pred.predict_value_from_arrays(pred.coverage_views(os.path.join(ds_root, n), IMG_PATTERN[4]))
+                       for n in val_names])
+    params, meta = load_checkpoint(best_path)
+    trainer_model = prv_train_mod.init_model(cfg_reg, 5)
+    trainer_model.load_state_dict(prvnet_state_dict_from_flax(params))
+    predict = prv_train_mod.make_eval_step(trainer_model.to(dev), cfg_reg, mesh)
+    val_ds = PVBDataset(ds_root, val_split, IMG_PATTERN[4], crop=TRAIN_SIZE)
+    want = torch.cat([predict(v).cpu() for v, _ in val_ds.batches(cfg_reg.micro_batch)]).numpy().astype(np.float64)
+    labels = np.array([split["labels"][n] for n in val_names], np.float64)
+    gap = float(np.abs(values - want).max())
+    l1 = float(np.abs(values - labels).mean())
+    log(f"predictor {np.round(values, 4).tolist()} against the trainer's eval step {np.round(want, 4).tolist()}: "
+        f"worst {gap:.3e} (need <= {SERVE_BUDGET_ATOL}); l1 {l1:.4f} against the checkpoint's val l1 "
+        f"{meta['val']['l1_mean']:.4f} (epoch {meta['epoch']})")
+    if gap > SERVE_BUDGET_ATOL or abs(l1 - meta["val"]["l1_mean"]) > SERVE_BUDGET_ATOL:
+        raise SystemExit("the predictor does not serve what the trainer evaluated")
+    del trainer_model, predict
+    cpu_pred = BudgetPredictor(best_path, arch=PRV_ARCH, crop=TRAIN_SIZE, device="cpu")
+    views = pred.coverage_views(os.path.join(ds_root, val_names[0]), IMG_PATTERN[4])
+    cpu_feat, card_feat = encoder_features(cpu_pred, views), encoder_features(pred, views)
+    feat_err = float((card_feat - cpu_feat).abs().max() / cpu_feat.abs().max())
+    cpu_logit, card_logit = float(cpu_pred.logits(views)[0]), float(pred.logits(views)[0])
+    log(f"card against CPU on {val_names[0]}: features {feat_err:.3e} of their largest (need <= {PRV_FEATURE_RTOL}), "
+        f"logit {card_logit:.8f} against {cpu_logit:.8f} (need <= {PRV_LOGIT_ATOL} apart)")
+    if feat_err > PRV_FEATURE_RTOL or abs(card_logit - cpu_logit) > PRV_LOGIT_ATOL:
+        raise SystemExit("the trained checkpoint on the card does not agree with the CPU")
+    del cpu_pred
+    del pred
+    # phase 12's object, as the pipeline's predictor reads it (its default crop)
+    pred = BudgetPredictor(best_path, arch=PRV_ARCH, device=dev)
+    cov5 = os.path.join(mode21_config(root).gt_path, "5")
+    budget = pred.predict_from_coverage(cov5, PRV_CASE)
+    value = pred.predict_value_from_arrays(pred.coverage_views(cov5, PRV_CASE))
+    log(f"phase 12's object, views {list(PRV_CASE)} of its 5-view set: budget {budget} from {value:.6f}")
+    del pred
+    torch.cuda.empty_cache()
+
+    # (e) mode 21 through the CLI with the trained checkpoint
+    cfg_e, yaml_path = prv_train_mode21_config(root)
+    sizes = list(dict.fromkeys([cfg_e.num_of_views, 5, cfg_e.num_of_views, *range(5, 61), 100]))
+    missing = [n for n in sizes if not os.path.exists(os.path.join(cfg_e.gt_path, f"{n}.json"))]
+    argv = ["--config", yaml_path, "--mode", "21", "--method", "4", "--objects", OBJ_NAME, "--checkpoint", best_path,
+            "--device", str(dev)]
+    log(f"-- 13e: nerf_prv_tpu_torch.pipeline.cli.main({argv[2:]}) in phase 12's workspace: {len(sizes)} coverage "
+        f"sets ({cfg_e.num_of_views}, 5..60, 100), {len(missing)} of them not rendered yet; the default voxel field, "
+        f"eval on 100 views")
+    rc, launched_e, evals, _, stages, wall = drive_mode21(lambda: pipeline_cli.main(argv), record_frames=False)
+    walls["mode 21 CLI"] = wall
+    log(f"mode 21 through the CLI: exit {rc}, {wall:.2f} s; stages: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in stages.items() if not k.startswith("coverage ")) + f"; {len(sizes)} coverage "
+        f"sets {sum(v for k, v in stages.items() if k.startswith('coverage ')):.2f} s ({len(missing)} rendered)")
+    log("launches: " + ", ".join(f"{k} {v}" for k, v in launched_e.items()))
+    if rc != 0:
+        raise SystemExit("the pipeline CLI failed")
+    path = f"{cfg_e.save_path}_v{len(PRV_CASE)}_t0"
+    # K8: one launch a coverage set not rendered before (get_coverage keeps a set whose json exists)
+    check_mode21(dev, cfg_e, path, budget, launched_e, evals, None, len(missing), NerfConfig(n_steps=cfg_e.n_steps))
+    for k in kernels:
+        k["launches_prv_train"] = launched_a[k["name"]] + launched_e[k["name"]]
+    log(f"phase 13 ({card}): micro-batch {micro} objects, peak {peaks[micro] / 1e9:.2f} GB; regression application "
+        f"{reg_s:.3f} s ({reg_ips:.1f} images/s, f32 bound {reg_bound:.3f} s), pretrain application {pre_s:.3f} s "
+        f"({pre_ips:.1f} images/s, bound {pre_bound:.3f} s); walls: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -3319,6 +3773,7 @@ def main() -> int:
         k_splat, k_cast = phase_coverage(dev, root, card)
         phase_batch(dev, root, source, k_gather, k_scatter, k_hash, k_bwd, single_ms, card)
         phase_prv(dev, root, [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast], card)
+        phase_prv_train(dev, root, [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast], card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast]}))

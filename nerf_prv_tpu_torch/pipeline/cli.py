@@ -4,7 +4,8 @@ Counterpart of ``nerf_prv_tpu/pipeline/cli.py``: the reference's interactive
 console (mode int + object names terminated by ``-1``,
 ``main.cpp:2294-2309``) and the JAX package's flags, plus ``--device``
 (default ``cuda``; ``--device cpu`` runs every mode on the CPU).
-``--checkpoint`` takes the PRVNet ``.pth``.
+``--checkpoint`` takes a PRVNet checkpoint: the JAX package's (or this
+package's trainer's) ``.msgpack``, or the reference's ``.pth``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--workspace", default=None)
     p.add_argument("--n-steps", type=int, default=None, help="NeRF train steps")
     p.add_argument("--method", type=int, default=None, help="method_of_IG override")
-    p.add_argument("--checkpoint", default=None, help="PRVNet checkpoint (.pth)")
+    p.add_argument("--checkpoint", default=None, help="PRVNet checkpoint (.msgpack or .pth)")
     p.add_argument(
         "--sizes", type=int, nargs="*", default=None,
         help="view-space sizes for modes 0/20 (default 3..100)",

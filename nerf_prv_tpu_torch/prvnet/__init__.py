@@ -1,6 +1,5 @@
-"""PRVNet, the view-budget predictor: its encoders, heads, datasets and
-inference (``nerf_prv_tpu/prvnet``'s serving half; its trainer is not
-ported yet)."""
+"""PRVNet, the view-budget predictor: its encoders, heads, datasets,
+inference and trainer (``nerf_prv_tpu/prvnet``)."""
 
 from .convnextv2 import MODELS, ConvNeXtV2, convnextv2_tiny
 from .data import PVBDataset, PVBPretrainDataset, center_crop, load_rgb
@@ -18,6 +17,14 @@ from .model import (
     logits_to_budget,
     make_pvbnet,
     make_pvbpretrain,
+)
+from .train import (
+    TrainConfig,
+    check_accuracy,
+    load_checkpoint,
+    pretrain,
+    save_checkpoint,
+    train_regression,
 )
 
 __all__ = [
@@ -39,4 +46,10 @@ __all__ = [
     "logits_to_budget",
     "make_pvbnet",
     "make_pvbpretrain",
+    "TrainConfig",
+    "check_accuracy",
+    "load_checkpoint",
+    "pretrain",
+    "save_checkpoint",
+    "train_regression",
 ]

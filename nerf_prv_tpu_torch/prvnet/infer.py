@@ -2,10 +2,13 @@
 
 Counterpart of ``nerf_prv_tpu/prvnet/infer.py``: load a checkpoint once,
 read the pattern-[0, 1, 3] images, forward PVBNet,
-``round(13 + 45 * sigmoid(logit))``.  The checkpoint is the reference's own
-``best_checkpoint.pth`` layout (``model_state_dict`` with ``module.``
-prefixes) or a state dict of this package's ``PVBNet``; the two share key
-names, so no key is converted.
+``round(13 + 45 * sigmoid(logit))``.  The checkpoint is chosen by suffix:
+a ``.msgpack`` file is the JAX package's (and this package's trainer's)
+``best_checkpoint.msgpack``, a Flax tree read with the package's own msgpack
+reader and mapped by ``convert.prvnet_state_dict_from_flax``; any other
+file is the reference's own ``best_checkpoint.pth`` layout
+(``model_state_dict`` with ``module.`` prefixes) or a state dict of this
+package's ``PVBNet``, which share key names, so no key is converted.
 
 The forward runs cuDNN's convolutions in full float32: the budget is a
 rounded integer, and TF32 moves the logit.  The setting is scoped to the
@@ -20,8 +23,10 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from ..convert import prvnet_state_dict_from_flax
 from .data import load_rgb
 from .model import IMG_PATTERN, logits_to_budget, make_pvbnet
+from .train import load_checkpoint
 
 
 def _strip_module(state_dict: Mapping) -> dict:
@@ -56,7 +61,10 @@ class BudgetPredictor:
         if params is None:
             if checkpoint_path is None or not os.path.exists(checkpoint_path):
                 raise FileNotFoundError(f"PRVNet checkpoint missing: {checkpoint_path}")
-            params = load_torch_checkpoint(checkpoint_path)
+            if checkpoint_path.endswith(".msgpack"):
+                params = prvnet_state_dict_from_flax(load_checkpoint(checkpoint_path)[0])
+            else:
+                params = load_torch_checkpoint(checkpoint_path)
         elif isinstance(params, Mapping) and "model_state_dict" in params:
             params = params["model_state_dict"]
         self.device = torch.device(device)

@@ -5,7 +5,7 @@ poll ``<root>/data/ready_c++.txt``, read the pattern-[0, 1, 3] PNGs from
 ``data/images/``, forward PVBNet on ``device``, write the rounded [13, 58]
 budget to ``data/view_budget.txt``, touch ``ready_py.txt``.
 
-    python -m nerf_prv_tpu_torch.servers.infer_server --root . --checkpoint best_checkpoint.pth
+    python -m nerf_prv_tpu_torch.servers.infer_server --root . --checkpoint best_checkpoint.msgpack
 """
 
 import argparse
@@ -40,7 +40,7 @@ def serve(root: str, checkpoint: str, poll_s: float = 0.1, once: bool = False, d
 if __name__ == "__main__":
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=".", help="dir containing data/")
-    p.add_argument("--checkpoint", default="./checkpoints/best_checkpoint.pth")
+    p.add_argument("--checkpoint", default="./checkpoints/best_checkpoint.msgpack")
     p.add_argument("--device", default="cuda")
     p.add_argument("--once", action="store_true")
     args = p.parse_args()

@@ -759,3 +759,67 @@ def test_budget_predictor_card_logit_matches_cpu(cuda_device):
     assert abs(b) > 0.1  # a logit the encoder moves, not the head's bias alone
     assert abs(a - b) <= PRV_LOGIT_TOL * max(1.0, abs(b)), (a, b)
     assert abs(card.predict_value_from_arrays(views) - cpu.predict_value_from_arrays(views)) <= 45 / 4 * PRV_LOGIT_TOL
+
+
+def _prvnet_batches(n_micro, seed, k=2, size=64):
+    rng = np.random.default_rng(seed)
+    return [(rng.random((2, k, size, size, 3), dtype=np.float32), rng.uniform(13, 58, 2).astype(np.float32))
+            for _ in range(n_micro)]
+
+
+def test_prvnet_training_application_card_matches_cpu(cuda_device):
+    """One accumulated application of the trainer (atto, 64 px, K = 2, two
+    micro-batches of 2) on the card and on the CPU from the same weights:
+    the losses and the first micro-gradient within float32 summation noise
+    (cuDNN's TF32 off in both), the parameters after the application as the
+    CPU tests hold them against JAX (Adam may move an element whose gradient
+    is float noise either way)."""
+    from nerf_prv_tpu_torch.parallel.mesh import make_mesh
+    from nerf_prv_tpu_torch.prvnet import train as ptrain
+
+    cfg = ptrain.TrainConfig(arch="convnextv2_atto", batch_size=4, accum_steps=2, image_size=64, blr=0.05)
+    start = ptrain.init_model(cfg, 2).state_dict()
+    batches = _prvnet_batches(2, 3)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = ptrain.init_model(cfg, 2)
+        model.load_state_dict(start)
+        step = ptrain.make_train_step(model.to(dev), cfg, mesh=make_mesh(devices=[dev]))
+        losses = [float(step(*batches[0]))]
+        grads = [g.detach().cpu().clone() for g in step.acc]
+        losses.append(float(step(*batches[1])))
+        assert step.count == 1
+        runs[dev] = losses, grads, {k: v.cpu() for k, v in model.state_dict().items()}
+    (cl, cg, cp), (pl, pg, pp) = runs["cuda"], runs["cpu"]
+    for a, b in zip(cl, pl):
+        assert abs(a - b) <= 1e-5 * abs(b), (a, b)
+    for a, b in zip(cg, pg):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
+    gaps = torch.cat([(cp[k] - pp[k]).abs().flatten() for k in pp]) / cfg.lr
+    moved = torch.cat([(pp[k] - start[k]).abs().flatten() for k in pp]) / cfg.lr
+    assert float(moved.median()) > 0.5
+    assert float(gaps.median()) <= 1e-3 and float((gaps > 0.01).float().mean()) <= 1e-3 and float(gaps.max()) <= 2
+
+
+def test_train_regression_defaults_to_the_card(cuda_device, tmp_path):
+    """Without a mesh the trainer runs on cuda:0 and writes its checkpoint."""
+    import os
+
+    from PIL import Image
+
+    from nerf_prv_tpu_torch.prvnet import train as ptrain
+
+    rng = np.random.default_rng(4)
+    names = [f"obj{i}" for i in range(4)]
+    for i, name in enumerate(names):
+        os.makedirs(tmp_path / name)
+        for j in range(2):
+            Image.fromarray(rng.integers(0, 256, (40, 40, 3), dtype=np.uint8), "RGB").save(
+                tmp_path / name / f"rgbaClip_{j}.png")
+        (tmp_path / name / "view_budget.txt").write_text(str(15 + 10 * i))
+    (tmp_path / "split.txt").write_text("\n".join(names) + "\n")
+    cfg = ptrain.TrainConfig(arch="convnextv2_atto", batch_size=2, epochs=1, image_size=32)
+    model, best = ptrain.train_regression(str(tmp_path), str(tmp_path / "split.txt"), str(tmp_path / "split.txt"),
+                                          cfg=cfg, pattern=[0, 1], checkpoint_dir=str(tmp_path / "ckpt"))
+    assert {p.device for p in model.parameters()} == {torch.device("cuda", 0)}
+    assert math.isfinite(best["l1_mean"]) and (tmp_path / "ckpt" / "best_checkpoint.msgpack").exists()
