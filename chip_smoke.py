@@ -137,6 +137,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -160,6 +161,7 @@ from nerf_prv_tpu_torch.labeling.labels import fit_objects  # noqa: E402
 from nerf_prv_tpu_torch.labeling.lognormal import fit_batch  # noqa: E402
 from nerf_prv_tpu_torch.nerf import api as api_mod  # noqa: E402
 from nerf_prv_tpu_torch.nerf import batch_train as batch_mod  # noqa: E402
+from nerf_prv_tpu_torch.nerf import model as model_mod  # noqa: E402
 from nerf_prv_tpu_torch.nerf import render as render_mod  # noqa: E402
 from nerf_prv_tpu_torch.nerf import train as train_mod  # noqa: E402
 from nerf_prv_tpu_torch.nerf import voxelfield  # noqa: E402
@@ -191,7 +193,9 @@ from nerf_prv_tpu_torch.pipeline.coverage import generate_novel_sets, get_covera
 from nerf_prv_tpu_torch.pipeline.nbv import NBVRunner  # noqa: E402
 from nerf_prv_tpu_torch.planning.tsp import GlobalPathPlanner  # noqa: E402
 from nerf_prv_tpu_torch.labeling.dataset import CATEGORY_PREFIXES, build_dataset, select_labels  # noqa: E402
-from nerf_prv_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from nerf_prv_tpu_torch.parallel import mesh as parallel_mesh  # noqa: E402
+from nerf_prv_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
+from nerf_prv_tpu_torch.parallel.mesh import make_mesh, shard_rows  # noqa: E402
 from nerf_prv_tpu_torch.prvnet import train as prv_train_mod  # noqa: E402
 from nerf_prv_tpu_torch.prvnet.data import PVBDataset, PVBPretrainDataset, read_split  # noqa: E402
 from nerf_prv_tpu_torch.prvnet.infer import BudgetPredictor  # noqa: E402
@@ -217,10 +221,13 @@ from nerf_prv_tpu_torch.viewspace.hemisphere import (  # noqa: E402
 # the hash-encode wrapper's module (the package exports the function under
 # the module's name, so ``import`` yields the function)
 hash_encode_mod = sys.modules[hash_encode.__module__]
+_MASKED_GATHER = parallel_mesh._masked_gather  # phase 14's broken variants stand in for it
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and f32 rate
 # outside the tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6  # the H100's L2 cache (the on-chip-measurement guide's 50 MB)
+COLD_SPAN = 4  # a cold timing cycles its calls over copies of the inputs that hold this many L2s
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12  # dense, the tensor cores
 
@@ -734,6 +741,21 @@ def ray_ordered_indices(source: BatchSource, cfg: NerfConfig, n_samples: int, se
     return idx.contiguous()
 
 
+def cold_copies(args: tuple) -> int:
+    """Copies of ``args`` enough that the calls between two turns of one
+    copy read COLD_SPAN times the L2."""
+    return math.ceil(COLD_SPAN * L2_BYTES / sum(a.numel() * a.element_size() for a in args)) + 1
+
+
+def cold_calls(fn, args: tuple):
+    """``fn`` over :func:`cold_copies` copies of ``args``, a different copy
+    each call, so every call finds its inputs in HBM, as the HBM byte bound
+    assumes (a call whose inputs stay in the L2 across back-to-back calls
+    can beat that bound)."""
+    sets = itertools.cycle([tuple(a.clone() for a in args) for _ in range(cold_copies(args))])
+    return lambda: fn(*next(sets))
+
+
 def gather_bound_ms(table, idx) -> float:
     """Bytes over the HBM rate: the indices and the distinct rows they name
     read once, the output written once.  The kernel does no arithmetic."""
@@ -752,9 +774,12 @@ def scatter_bound_ms(idx, upd, n_rows) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_gather(table, idx, note) -> dict:
+def check_gather(table, idx, note, cold: bool = False) -> dict:
     """One row_gather shape: exact equality with the plain version, then
-    kernel, plain, library and bound times."""
+    kernel, plain, library and bound times.  ``cold``: every call reads
+    its own copy of the table and indices (:func:`cold_calls`), for a shape
+    whose working set fits in the L2; the time of back-to-back calls on one
+    copy is kept as ``warm_ms``."""
     dtype = "f32" if table.dtype == torch.float32 else "bf16"
     label = f"{dtype} {tuple(table.shape)} N={idx.numel()} {note}"
     got = row_gather(table, idx)
@@ -768,19 +793,30 @@ def check_gather(table, idx, note) -> dict:
     err = float((got.float() - want.float()).abs().max()) if idx.numel() else 0.0
     row = dict(shape=label, max_abs_err=err, bound_ms=0.0, ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0)
     if idx.numel():
+        def timed(fn):
+            return cold_calls(fn, (table, idx)) if cold else (lambda: fn(table, idx))
         row.update(
-            kernel_times(lambda: row_gather(table, idx), f"row_gather {label}"),
-            plain_ms=device_ms(lambda: row_gather_plain(table, idx), iters=20),
-            library_ms=device_ms(lambda: torch.index_select(table, 0, idx), iters=20),
+            kernel_times(timed(row_gather), f"row_gather {label}"),
+            plain_ms=device_ms(timed(row_gather_plain), iters=20),
+            library_ms=device_ms(timed(lambda t, i: torch.index_select(t, 0, i)), iters=20),
             bound_ms=gather_bound_ms(table, idx),
         )
-        log(f"row_gather {label}: equal; {times_text(row)}, table[idx] {row['plain_ms']:.4f} ms, "
-            f"index_select {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes)")
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        note = ""
+        if cold:
+            row["warm_ms"] = device_ms(lambda: row_gather(table, idx))
+            note = (f" (inputs cycled over {cold_copies((table, idx))} copies; warm, one copy "
+                    f"in the L2, device {row['warm_ms']:.4f} ms)")
+        log(f"row_gather {label}: equal; {times_text(row)}{note}, table[idx] {row['plain_ms']:.4f} ms, "
+            f"index_select {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes), "
+            f"{row['bound_share']:.0%} of it")
     return row
 
 
-def check_scatter(idx, upd, n_rows, label) -> dict:
-    """One row_scatter_add shape against index_add_ and a float64 sum.
+def check_scatter(idx, upd, n_rows, label, cold: bool = False) -> dict:
+    """One row_scatter_add shape against index_add_ and a float64 sum;
+    ``cold`` as for :func:`check_gather`, over copies of the indices and
+    updates.
 
     The tolerance is the f32 summation bound itself: a row that receives k
     updates is the result of k rounded adds, each off by at most 2^-24 of
@@ -807,19 +843,30 @@ def check_scatter(idx, upd, n_rows, label) -> dict:
         raise SystemExit(f"row_scatter_add {label} disagrees with index_add_ by {vs_plain:.3e}")
     row = dict(shape=label, max_abs_err=vs_plain, plain_ms=0.0, library_ms=0.0)
     row["bound_ms"], row["bound_by"] = scatter_bound_ms(idx, upd, n_rows)
+
+    def timed(fn):
+        return cold_calls(fn, (idx, upd)) if cold else (lambda: fn(idx, upd))
+
     # with no updates the call is its memset alone: timed too, so that the
     # kernel's own share of a call can be told from the zeroing's
-    row.update(kernel_times(lambda: row_scatter_add(idx, upd, n_rows), f"row_scatter_add {label}"))
+    row.update(kernel_times(timed(lambda i, u: row_scatter_add(i, u, n_rows)), f"row_scatter_add {label}"))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     if idx.numel():
         zero = torch.zeros((n_rows, upd.shape[1]), dtype=torch.float32, device=upd.device)
         row.update(
-            plain_ms=device_ms(lambda: row_scatter_add_plain(idx, upd, n_rows), iters=20),
-            library_ms=device_ms(lambda: torch.index_add(zero, 0, idx, upd), iters=20),
+            plain_ms=device_ms(timed(lambda i, u: row_scatter_add_plain(i, u, n_rows)), iters=20),
+            library_ms=device_ms(timed(lambda i, u: torch.index_add(zero, 0, i, u)), iters=20),
         )
+    note = ""
+    if cold:
+        row["warm_ms"] = device_ms(lambda: row_scatter_add(idx, upd, n_rows))
+        note = (f" (inputs cycled over {cold_copies((idx, upd))} copies; warm, one copy in "
+                f"the L2, device {row['warm_ms']:.4f} ms)")
     log(f"row_scatter_add {label}: max rows' updates {int(count.max())}, |kernel - f64| max "
         f"{float(err.max()):.3e} (bound {float(tol.max()):.3e}), |kernel - index_add_| {vs_plain:.3e}; "
-        f"{times_text(row)} (memset included), zeros+index_add_ {row['plain_ms']:.4f} ms, "
-        f"index_add {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"{times_text(row)} (memset included){note}, zeros+index_add_ {row['plain_ms']:.4f} ms, "
+        f"index_add {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"{row['bound_share']:.0%} of it")
     return row
 
 
@@ -3713,6 +3760,336 @@ def phase_prv_train(dev, root: str, kernels: list, card: str) -> None:
     log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 14: the multi-device path on one card ---------------------------------------------------------
+
+TP_SAMPLES = (4096, 16)  # one tight step's samples: 4,096 rays x 16
+MD_STEPS = 200  # 14c: train_batch over dp = 2, depth cut from 2,500 to fit phase 14's 60 s
+TP_DP_RTOL = 1e-6  # 14a: tp x dp forward against the replicated one, relative to the largest output
+MD_LOSS_RTOL = 1e-6  # 14b: PRVNet loss on two devices against one, relative
+MD_GRAD_RTOL = 1e-5  # 14a MLP leaves, 14b every leaf: worst difference over the leaf's largest entry
+# 14c: the run through row_scatter_add against the one with the sums in a fixed order: each object's mean over
+# the steps of log(loss / fixed-order loss), the worst object's.  Two correct runs part once the atomics' order
+# rounds a sum otherwise (after 28-73 steps) and then wander either way: up to 1.2e-2 on an H100.  A
+# scatter-add that drops duplicates drifts 0.21.  A subtler fault can stay under the limit: phases 2b and 6 hold
+# the kernel itself to its sums
+MD_KERNEL_LOSS_DRIFT = 0.05
+TP_BROKEN = {
+    "does not mask out-of-shard rows": lambda shard, idx, offset: voxelfield._GatherRows.apply(
+        shard, torch.remainder(idx - offset, shard.shape[0]).contiguous(), False),
+    "has the shard offset off by one row": lambda shard, idx, offset: _MASKED_GATHER(shard, idx, offset + 1),
+}
+
+
+def ray_points(source: BatchSource, cfg: NerfConfig, n_rays: int, n_samples: int, seed: int):
+    """(positions (n_rays * n_samples, 3), unit directions) of stratified
+    samples along ``n_rays`` rays drawn from the scene's hit pool, ray by
+    ray, clamped into the grid's [0, 1)^3."""
+    dev = source.pixels.device
+    (o, d, _, _), jitter = source.draw(torch.Generator(device=dev).manual_seed(seed),
+                                       dataclasses.replace(cfg, train_rays=n_rays), n_samples)
+    tmin, tmax, _ = ray_sphere(o, d)
+    base = torch.arange(n_samples, dtype=torch.float32, device=dev)[None, :]
+    ts = tmin[:, None] + (base + jitter) * ((tmax - tmin) / n_samples)[:, None]
+    pos = torch.clamp(o[:, None, :] + d[:, None, :] * ts[..., None], 0.0, 1.0 - 1e-6)
+    return pos.reshape(-1, 3).contiguous(), d.repeat_interleave(n_samples, 0).contiguous()
+
+
+def tp_loss(sigma, rgb):
+    """tests/test_parallel.py's loss: every output matters."""
+    return sigma.sum() * 1e-3 + (rgb * rgb).sum()
+
+
+def tp_forward(mesh, params, x, d, cfg, batch_axis=None) -> tuple:
+    """(sigma, rgb, gathers launched) of one tp field forward."""
+    g0 = row_gather.launches
+    sigma, rgb = parallel_mesh.tp_voxel_field(mesh, params, x, d, cfg, batch_axis=batch_axis)
+    return sigma, rgb, row_gather.launches - g0
+
+
+def leaf_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def tp_grads(mesh, p, x, d, cfg, batch_axis=None) -> tuple:
+    """(MLP gradients by name, the grid's gradient as one tensor, gathers
+    launched in the forward, scatter-adds in the backward) of ``tp_loss``
+    through the tp field."""
+    g0 = row_gather.launches
+    sig, rgb = parallel_mesh.tp_voxel_field(mesh, p, x, d, cfg, batch_axis=batch_axis)
+    fwd = row_gather.launches - g0
+    keys = [k for k in p if k != "grid"]
+    s0 = row_scatter_add.launches
+    grads = torch.autograd.grad(tp_loss(sig, rgb), [p[k] for k in keys] + list(p["grid"]))
+    return dict(zip(keys, grads)), torch.cat(grads[len(keys):]), fwd, row_scatter_add.launches - s0
+
+
+def replicated_grads(leaves, x, d, cfg) -> tuple:
+    """(every gradient of ``tp_loss`` through the replicated field, the
+    cotangent of the gathered rows, the rows' indices)."""
+    ref = torch.autograd.grad(tp_loss(*voxelfield.voxel_field(leaves, x, d, cfg)), list(leaves.values()))
+    idx, frac = voxelfield.cell_and_frac(x, cfg.voxel_grid_size)
+    rows = leaves["grid"].detach()[idx.long()].requires_grad_(True)
+    raw = voxelfield.density_mlp(leaves, voxelfield.blend_rows(rows, frac, cfg.voxel_features), x, cfg)
+    sigma, rgb = torch.exp(raw[..., 0]), model_mod.radiance(leaves, raw[..., 1:], d, cfg)
+    (upd,) = torch.autograd.grad(tp_loss(sigma, rgb), [rows])
+    return dict(zip(leaves, ref)), upd.contiguous(), idx
+
+
+def phase_md_tp(dev, source: BatchSource, k_gather: dict, k_scatter: dict, card: str) -> dict:
+    cfg = dataclasses.replace(VOXEL_CFG, voxel_gather_dtype="f32")
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    g_size, n_rays, n_samples = cfg.voxel_grid_size, *TP_SAMPLES
+    n_rows, width = g_size ** 3, 8 * cfg.voxel_features
+    log(f"-- 14a: tp_voxel_field at full width ({g_size}^3 grid, rows of {width} f32, "
+        f"{n_rows * width * 4 / 1e6:.1f} MB), {n_rays * n_samples} samples of {n_rays} rays, on a mesh of {dev} "
+        f"listed 2 (tp) and 4 (tp x dp) times, against the replicated field gathering in f32")
+    g = torch.Generator(device=dev).manual_seed(14)
+    params = init_params(g, cfg, device=dev)
+    params["grid"] = torch.rand((n_rows, width), generator=g, device=dev) * 2.0 - 1.0
+    x, d = ray_points(source, cfg, n_rays, n_samples, seed=41)
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    tp2 = make_mesh(("tp", "dp"), (2, 1), [dev] * 2)
+    tp2dp2 = make_mesh(("tp", "dp"), (2, 2), [dev] * 4)
+    sharded = dict(leaves, grid=shard_rows(leaves["grid"].detach().requires_grad_(True), tp2))
+
+    # the forward: bit-equal at tp 2; at tp 2 x dp 2 the products run on half the batch each
+    fwd = {}
+    with torch.no_grad():
+        for c in (cfg, cfg32):
+            ref = voxelfield.voxel_field(leaves, x, d, c)
+            for name, m, axis in (("tp 2", tp2, None), ("tp 2 x dp 2", tp2dp2, "dp")):
+                sig, rgb, n = tp_forward(m, sharded, x, d, c, axis)
+                fwd[name, c is cfg32] = (torch.equal(sig, ref[0]) and torch.equal(rgb, ref[1]),
+                                         max(leaf_gap(sig, ref[0]), leaf_gap(rgb, ref[1])), n)
+    for (name, f32), (equal, gap, n) in fwd.items():
+        log(f"forward at {name}, {'f32' if f32 else 'bf16 (the default)'} products: "
+            f"{'bit-equal' if equal else f'{gap:.3e} of the largest output'} against the replicated field; {n} "
+            f"row_gather launches (need 2: one a shard)")
+    if not (fwd["tp 2", False][0] and fwd["tp 2", True][0]) or fwd["tp 2 x dp 2", True][1] > TP_DP_RTOL \
+            or any(n != 2 for _, _, n in fwd.values()):
+        raise SystemExit(f"the tp field's forward is not bit-equal at tp 2, or not within {TP_DP_RTOL} at tp 2 x "
+                         f"dp 2 in f32, or it launches otherwise")
+    with torch.no_grad():
+        ref = voxelfield.voxel_field(leaves, x, d, cfg)
+        for name, broken in TP_BROKEN.items():
+            parallel_mesh._masked_gather = broken
+            try:
+                bsig, brgb, _ = tp_forward(tp2, sharded, x, d, cfg)
+            finally:
+                parallel_mesh._masked_gather = _MASKED_GATHER
+            caught = not (torch.equal(bsig, ref[0]) and torch.equal(brgb, ref[1]))
+            log(f"  broken on purpose, a shard gather that {name}: sigma off by {leaf_gap(bsig, ref[0]):.3e} of "
+                f"its largest -> {'caught' if caught else 'NOT caught'}")
+            if not caught:
+                raise SystemExit(f"the tp forward check does not catch a gather that {name}")
+
+    # gradients against the replicated field's: the grid's within twice phase 2b's bound (each scatter-add
+    # within k * 2^-24 * sum|upd| of the exact sum for a row of k updates), the MLP leaves within MD_GRAD_RTOL
+    upd = idx = None
+    for name, m, axis, c in (("tp 2", tp2, None, cfg), ("tp 2 x dp 2", tp2dp2, "dp", cfg32),
+                             ("tp 2 x dp 2, bf16 products", tp2dp2, "dp", cfg)):
+        ref, c_upd, c_idx = replicated_grads(leaves, x, d, c)
+        if upd is None:
+            upd, idx = c_upd, c_idx
+        i64 = c_idx.long()
+        mag = torch.zeros((n_rows, width), dtype=torch.float64, device=dev).index_add_(0, i64, c_upd.double().abs())
+        tol = 2 * torch.bincount(i64, minlength=n_rows).double()[:, None] * 2.0 ** -24 * mag
+        mlp, grid_grad, n_g, n_s = tp_grads(m, sharded, x, d, c, axis)
+        excess = float(((grid_grad.double() - ref["grid"].double()).abs() - tol).max())
+        gaps = {k: leaf_gap(v, ref[k]) for k, v in mlp.items()}
+        held = "bf16" not in name
+        log(f"gradients at {name}: grid {float((grid_grad - ref['grid']).abs().max()):.3e} from the replicated "
+            f"one, {excess:.3e} beyond twice the f32 scatter-add bound; MLP leaves " + ", ".join(
+                f"{k} {v:.2e}" for k, v in gaps.items()) + (f" of their largest (need <= 0 and <= {MD_GRAD_RTOL})"
+                                                              if held else " of their largest (no limit: the "
+                                                              "halves' weight gradients are rounded to bf16 apart)")
+            + f"; row_gather {n_g}, row_scatter_add {n_s} launches (need 2 and 2)")
+        if (n_g, n_s) != (2, 2) or (held and (excess > 0 or max(gaps.values()) > MD_GRAD_RTOL)):
+            raise SystemExit(f"the {name} gradients disagree with the replicated field's or launch otherwise")
+
+    # the row kernels at a shard's shapes: every sample's index reaches each shard's gather and scatter-add.
+    # A shard (8.2 MB) and the gather's output (16.8 MB) fit in the L2, so back-to-back calls on one copy would
+    # beat the HBM bound: timed cold, each call on its own copy of the inputs
+    shard_n = n_rows // 2
+    local = torch.remainder(idx, shard_n).contiguous()
+    k_gather["shapes"].append(check_gather(sharded["grid"][0].detach(), local, f"tp shard of {n_rows}, ray-ordered",
+                                           cold=True))
+    k_scatter["shapes"].append(check_scatter(local, upd, shard_n, f"N={local.numel()} tp shard of {n_rows}, "
+                                                                    "ray-ordered", cold=True))
+
+    flat = [v for k, v in sharded.items() if k != "grid"] + list(sharded["grid"])
+    steps = {
+        "replicated": lambda: torch.autograd.grad(tp_loss(*voxelfield.voxel_field(leaves, x, d, cfg)),
+                                                  list(leaves.values())),
+        "tp 2": lambda: torch.autograd.grad(tp_loss(*parallel_mesh.tp_voxel_field(tp2, sharded, x, d, cfg)), flat),
+    }
+    times = {}
+    for name in ("replicated", "tp 2", "tp 2", "replicated"):
+        times.setdefault(name, []).append(device_ms(steps[name], iters=20))
+    log(f"forward + backward at {n_rays * n_samples} samples, bf16 products, device ms in turns ({card}; no "
+        f"limit): replicated field gathering in f32 {times['replicated'][0]:.4f} / {times['replicated'][1]:.4f}, "
+        f"tp 2 {times['tp 2'][0]:.4f} / {times['tp 2'][1]:.4f}")
+    return {k: min(v) for k, v in times.items()}
+
+
+def phase_md_prvnet(dev, card: str) -> dict:
+    cfg = TrainConfig(arch=PRV_ARCH, image_size=TRAIN_SIZE, batch_size=4)
+    log(f"-- 14b: PRVNet ({PRV_ARCH}, {TRAIN_SIZE}x{TRAIN_SIZE}, 5 views, f32) one micro-step of 4 objects split "
+        f"2 + 2 over a mesh of {dev} listed twice, against a mesh of one")
+    model = prv_train_mod.init_model(cfg, 5)
+    g = torch.Generator(device=dev).manual_seed(15)
+    views = torch.rand((4, 5, TRAIN_SIZE, TRAIN_SIZE, 3), generator=g, device=dev)
+    # labels on one side of the seeded model's first prediction (~35.5, the middle of [13, 58]): with labels on
+    # both sides the L1 gradients of the head's bias and of the last norm's cancel to ~1e-10, which leaves them
+    # no digits to compare
+    labels = torch.tensor([14.0, 20.0, 26.0, 32.0], device=dev)
+    out = {}
+    for name, mesh in (("one", make_mesh(devices=[dev])), ("two", make_mesh(devices=[dev, dev]))):
+        step = prv_train_mod.make_train_step(model, cfg, mesh=mesh)
+        parts = step.replicas.shard(views, labels)
+        step.loss_and_grads(parts)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss, grads = step.loss_and_grads(parts)
+        sync()
+        out[name] = (float(loss), [gr.detach() for gr in grads], time.perf_counter() - t,
+                     torch.cuda.max_memory_allocated(), [tuple(v.shape) for v, _ in parts])
+        del step, parts, grads
+    (l1, g1, t1, m1, s1), (l2, g2, t2, m2, s2) = out["one"], out["two"]
+    d_loss = abs(l2 - l1) / abs(l1)
+    d_grad, worst = max((leaf_gap(b, a), n) for (n, _), a, b in zip(model.named_parameters(), g1, g2))
+    log(f"shares {s1} against {s2}; loss {l2:.8f} against {l1:.8f}: {d_loss:.3e} relative (need <= {MD_LOSS_RTOL}); "
+        f"worst gradient leaf {worst} {d_grad:.3e} of its largest (need <= {MD_GRAD_RTOL}); micro-step {t2:.3f} s against "
+        f"{t1:.3f} s, peak {m2 / 1e9:.2f} GB against {m1 / 1e9:.2f} GB ({card})")
+    if d_loss > MD_LOSS_RTOL or d_grad > MD_GRAD_RTOL or s2 != [(2, 5, TRAIN_SIZE, TRAIN_SIZE, 3)] * 2:
+        raise SystemExit("the PRVNet micro-step on two devices disagrees with one device's")
+    del model, views
+    torch.cuda.empty_cache()
+    return dict(one_s=t1, two_s=t2, one_gb=m1 / 1e9, two_gb=m2 / 1e9)
+
+
+def scatter_in_order(idx, upd, n_rows):
+    """The row scatter-add with every row's sum in one fixed order, where
+    the kernel's atomics add a row's updates in whatever order the blocks
+    run (so two trainings through the kernel differ in the last bits, and
+    Adam carries that on): the updates sorted by row (a stable sort),
+    summed by a float64 prefix sum along each column, differenced at each
+    row's last update."""
+    out = torch.zeros((n_rows, upd.shape[1]), dtype=upd.dtype, device=upd.device)
+    if idx.numel() == 0:
+        return out
+    i64 = idx.to(torch.int64)
+    order = torch.argsort(i64, stable=True)
+    rows = i64[order]
+    csum = torch.cumsum(upd[order].double().t().contiguous(), dim=1)  # (W, N): along the contiguous axis
+    last = torch.ones_like(rows, dtype=torch.bool)
+    last[:-1] = rows[1:] != rows[:-1]
+    at = csum[:, last]
+    out[rows[last]] = torch.diff(at, dim=1, prepend=torch.zeros_like(at[:, :1])).t().to(upd.dtype)
+    return out
+
+
+def phase_md_batch(dev, root: str, card: str) -> tuple:
+    cfg = dataclasses.replace(VOXEL_CFG, n_steps=MD_STEPS)
+    k = len(BATCH_FRAMES)
+    log(f"-- 14c: train_batch of phase 11's {k} objects over a dp mesh of {dev} listed twice, {MD_STEPS} steps, "
+        f"the devices' steps interleaved; then, with the scatter-add's sums in a fixed order, against each "
+        f"device's chunk trained in turn")
+    paths = [os.path.join(root, f"obj{i}_train.json") for i in range(k)]
+    for i, (n_frames, colour) in enumerate(zip(BATCH_FRAMES, BATCH_PATTERNS)):
+        if not os.path.exists(paths[i]):
+            write_scene(root, dev, f"obj{i}_train", n_frames, turn=0.0, colour=colour)
+    datasets = [load_dataset(p) for p in paths]
+    mesh = make_mesh(devices=[dev, dev])
+    runs, walls = {}, {}
+    for name in ("interleaved", "interleaved, sums in order", "in turn, sums in order"):
+        ordered = "in order" in name
+        with row_ops(voxelfield.row_gather, scatter_in_order) if ordered else contextlib.nullcontext():
+            sync()
+            t = time.perf_counter()
+            row_gather.launches = row_scatter_add.launches = 0
+            if name.startswith("interleaved"):
+                params, losses = batch_mod.train_batch(datasets, cfg, seed=0, mesh=mesh)
+            else:
+                chunks = [batch_mod._train_objects(datasets[2 * i:2 * i + 2], cfg, i, dev) for i in range(2)]
+                params = {n: torch.cat([p[n] for p, _ in chunks]) for n in chunks[0][0]}
+                losses = np.concatenate([ls for _, ls in chunks], axis=1)
+            sync()
+        walls[name] = time.perf_counter() - t
+        runs[name] = (params, losses, (row_gather.launches, row_scatter_add.launches))
+    with row_ops(voxelfield.row_gather, scatter_drops_duplicates):
+        _, broken = batch_mod.train_batch(datasets, cfg, seed=0, mesh=mesh)
+    want = tuple(2 * n for n in expected_train_launches(cfg))
+    same = {}
+    for a, b in (("interleaved, sums in order", "in turn, sums in order"),
+                 ("interleaved", "interleaved, sums in order")):
+        (pa, la, _), (pb, lb, _) = runs[a], runs[b]
+        same[a] = np.array_equal(la, lb) and all(torch.equal(pa[n], pb[n]) for n in pb)
+        first = int(np.argmax((la != lb).any(axis=1))) if not np.array_equal(la, lb) else None
+        log(f"{a} against {b}: {'bit-equal' if same[a] else 'NOT bit-equal'} (worst leaf "
+            f"{max(leaf_gap(pa[n], pb[n]) for n in pb):.3e} of its largest, losses "
+            f"{float(np.abs(la - lb).max()):.3e} apart, first apart at step {first})")
+    log(f"walls: " + ", ".join(f"{n} {w:.2f} s" for n, w in walls.items()) + "; launches " + ", ".join(
+        f"{n} {r[2]}" for n, r in runs.items()) + f" (predicted {want} through the kernels for two devices' "
+        f"{MD_STEPS} steps; the scatter-adds in order are not the kernel's)")
+    losses, launched = runs["interleaved"][1], runs["interleaved"][2]
+    if losses.shape != (MD_STEPS, k) or not np.isfinite(losses).all() or launched != want \
+            or any(r[2][0] != want[0] for r in runs.values()):
+        raise SystemExit("train_batch over dp = 2 gave no finite losses or launched otherwise")
+    fixed = runs["interleaved, sums in order"][1]
+
+    def drift(run):
+        return float(np.abs(np.log(run / fixed).mean(axis=0)).max())
+
+    gap, broken_gap = drift(losses), drift(broken)
+    caught = not broken_gap <= MD_KERNEL_LOSS_DRIFT  # a non-finite loss is caught too
+    log(f"losses through row_scatter_add against the sums in order: mean log ratio {gap:.3e} for the worst object "
+        f"(need <= {MD_KERNEL_LOSS_DRIFT}); broken on purpose, a scatter-add that drops duplicates: "
+        f"{broken_gap:.3e} -> {'caught' if caught else 'NOT caught'}")
+    if not gap <= MD_KERNEL_LOSS_DRIFT or not caught:
+        raise SystemExit("the interleaved train_batch's losses through row_scatter_add stray from the fixed-order "
+                         "run's, or the limit does not catch a broken scatter-add")
+    if not same["interleaved, sums in order"]:
+        raise SystemExit("the interleaved train_batch is not bit-equal to the in-turn order")
+    return walls, launched
+
+
+def phase_multidevice(dev, root: str, source: BatchSource, k_gather: dict, k_scatter: dict, card: str) -> None:
+    t_phase = time.perf_counter()
+    log(f"== phase 14: the multi-device path on one card (a mesh that lists {dev} several times runs the shard "
+        f"split, the masked gathers, the cross-device sums and the gradient reduction of a mesh of cards)")
+    parts = [time.perf_counter()]
+    tp_times = phase_md_tp(dev, source, k_gather, k_scatter, card)
+    parts.append(time.perf_counter())
+    prv = phase_md_prvnet(dev, card)
+    parts.append(time.perf_counter())
+    walls, launched_c = phase_md_batch(dev, root, card)
+    parts.append(time.perf_counter())
+    log(f"-- 14d: dryrun_multichip(4) on {dev} listed 4 times")
+    t = time.perf_counter()
+    row_gather.launches = row_scatter_add.launches = 0
+    out = dryrun_multichip(4)
+    sync()
+    launched_d = (row_gather.launches, row_scatter_add.launches)
+    log(f"dry run: {time.perf_counter() - t:.2f} s; ensemble losses {np.round(out['ensemble_losses'], 6).tolist()}, "
+        f"batched {out['batch_losses'].shape}, tp loss {out['tp_loss']:.6f}, grid shards {out['grid_shards']}; "
+        f"row_gather {launched_d[0]}, row_scatter_add {launched_d[1]} launches")
+    if min(launched_d) == 0:
+        raise SystemExit("the dry run did not go through the row kernels")
+    # the multi-device path's launches: 14c's interleaved train_batch and the dry run (not the comparisons)
+    k_gather["launches_multidevice"] = launched_c[0] + launched_d[0]
+    k_scatter["launches_multidevice"] = launched_c[1] + launched_d[1]
+    log(f"phase 14 ({card}): tp step {tp_times['tp 2']:.4f} ms against replicated {tp_times['replicated']:.4f} ms; "
+        f"PRVNet micro-step {prv['two_s']:.3f} s on two against {prv['one_s']:.3f} s on one; train_batch "
+        f"{walls['interleaved, sums in order']:.2f} s interleaved against {walls['in turn, sums in order']:.2f} s in "
+        f"turn; launches of 14c + 14d: row_gather {k_gather['launches_multidevice']}, row_scatter_add "
+        f"{k_scatter['launches_multidevice']}")
+    parts.append(time.perf_counter())
+    log("phase 14 parts: " + ", ".join(f"14{c} {b - a:.1f} s" for c, a, b in zip("abcd", parts, parts[1:])))
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -3774,6 +4151,7 @@ def main() -> int:
         phase_batch(dev, root, source, k_gather, k_scatter, k_hash, k_bwd, single_ms, card)
         phase_prv(dev, root, [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast], card)
         phase_prv_train(dev, root, [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast], card)
+        phase_multidevice(dev, root, source, k_gather, k_scatter, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast]}))

@@ -35,9 +35,13 @@ march, then the probe-tightened one), where the reference's batched scan
 runs ``cfg`` for every step; the train probe reads the field (as the
 reference's batched step does), so ``train_probe_refresh`` has no effect
 here.  With a ``mesh``, K is padded to a multiple of its ``dp`` size by
-repeating the last dataset (≙ ``pipeline/modes.py:199-205``), each device
-trains its chunk of objects in turn, and the padded objects are dropped
-from the result.
+repeating the last dataset (≙ ``pipeline/modes.py:199-205``) and each
+device trains its chunk of objects with its own generator and Adam; the
+devices' step loops are interleaved (step s on every device, then step
+s + 1), so that, the loop never waiting for the host, one device's launches
+queue while another runs (≙ the reference's object axis sharded over
+``dp``).  The result equals training the chunks one after another, and the
+padded objects are dropped from it.
 """
 
 from __future__ import annotations
@@ -170,35 +174,56 @@ def init_batched_params(generator: torch.Generator, cfg: NerfConfig, k: int, dev
     return {name: torch.stack([p[name] for p in sets]) for name in sets[0]}
 
 
+class _ObjectsTrainer:
+    """K objects trained together on one device, one step a call: the
+    generator (seeded ``seed``), the stacked parameters and their Adam."""
+
+    def __init__(self, datasets, cfg: NerfConfig, seed: int, device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.k = len(datasets)
+        self.params = init_batched_params(self.generator, cfg, self.k, device=self.device)
+        for v in self.params.values():
+            v.requires_grad_(True)
+        self.opt = make_optimizer(self.params, cfg)
+        self.obj = upload_objects(datasets, cfg, self.device)
+        self.losses: List[torch.Tensor] = []
+
+    def step(self, phase_cfg: NerfConfig) -> None:
+        n_rays = phase_cfg.train_rays
+        batch = sample_objects(self.generator, self.obj, n_rays)
+        if phase_cfg.n_importance > 0:
+            # the march draws its jitter and its resampling uniforms itself
+            loss = train_step(self.params, self.opt, batch, None, phase_cfg, self.generator)
+        else:
+            jitter = torch.rand((self.k * n_rays, phase_cfg.n_samples), generator=self.generator, device=self.device)
+            loss = train_step(self.params, self.opt, batch, jitter, phase_cfg)
+        self.losses.append(loss)
+
+    def result(self) -> Tuple[dict, np.ndarray]:
+        k = self.k
+        all_losses = torch.stack(self.losses).cpu().numpy() if self.losses else np.zeros((0, k), np.float32)
+        if all_losses.size and not np.isfinite(all_losses[-min(100, len(all_losses)):]).all():
+            print(
+                "[train_batch] WARNING: non-finite losses in the final steps: "
+                "a fit diverged; downstream metrics for those scenes are suspect"
+            )
+        return {name: v.detach() for name, v in self.params.items()}, all_losses
+
+
+def _train_interleaved(trainers: Sequence[_ObjectsTrainer], cfg: NerfConfig) -> None:
+    """Every trainer's steps, step s on each in turn before step s + 1."""
+    for phase_cfg, phase_steps in _phases(cfg, warm_start=False):
+        for _ in range(phase_steps):
+            for t in trainers:
+                t.step(phase_cfg)
+
+
 def _train_objects(datasets, cfg: NerfConfig, seed: int, device) -> Tuple[dict, np.ndarray]:
     """Train K objects together on one device."""
-    device = torch.device(device)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    k = len(datasets)
-    params = init_batched_params(generator, cfg, k, device=device)
-    for v in params.values():
-        v.requires_grad_(True)
-    opt = make_optimizer(params, cfg)
-    obj = upload_objects(datasets, cfg, device)
-    losses = []
-    for phase_cfg, phase_steps in _phases(cfg, warm_start=False):
-        n_rays = phase_cfg.train_rays
-        for _ in range(phase_steps):
-            batch = sample_objects(generator, obj, n_rays)
-            if phase_cfg.n_importance > 0:
-                # the march draws its jitter and its resampling uniforms itself
-                loss = train_step(params, opt, batch, None, phase_cfg, generator)
-            else:
-                jitter = torch.rand((k * n_rays, phase_cfg.n_samples), generator=generator, device=device)
-                loss = train_step(params, opt, batch, jitter, phase_cfg)
-            losses.append(loss)
-    all_losses = torch.stack(losses).cpu().numpy() if losses else np.zeros((0, k), np.float32)
-    if all_losses.size and not np.isfinite(all_losses[-min(100, len(all_losses)):]).all():
-        print(
-            "[train_batch] WARNING: non-finite losses in the final steps: "
-            "a fit diverged; downstream metrics for those scenes are suspect"
-        )
-    return {name: v.detach() for name, v in params.items()}, all_losses
+    trainer = _ObjectsTrainer(datasets, cfg, seed, device)
+    _train_interleaved([trainer], cfg)
+    return trainer.result()
 
 
 def train_batch(
@@ -213,11 +238,12 @@ def train_batch(
     axis, per-object per-step losses (steps, K) as numpy).
 
     With a ``mesh`` (``parallel.make_mesh``) the objects are padded to a
-    multiple of its ``dp`` size and each device trains its chunk in turn,
-    chunk i from a generator seeded with ``seed + i``; the result lies on
-    the first device (``device`` is then unused).  ``chunk_steps`` is kept for the reference's
-    signature: it sizes the reference's scan chunks, and the port has no
-    scan (the losses stay on the device until the end).
+    multiple of its ``dp`` size and each device trains its chunk, chunk i
+    from a generator seeded with ``seed + i``, the devices' steps
+    interleaved; the result lies on the first device (``device`` is then
+    unused).  ``chunk_steps`` is kept for the reference's signature: it
+    sizes the reference's scan chunks, and the port has no scan (the losses
+    stay on the device until the end).
     """
     del chunk_steps
     cfg = cfg or NerfConfig()
@@ -230,9 +256,9 @@ def train_batch(
     k, m = len(datasets), len(devices)
     padded = datasets + [datasets[-1]] * ((-k) % m)
     c = len(padded) // m
-    results: List[Tuple[dict, np.ndarray]] = [
-        _train_objects(padded[i * c : (i + 1) * c], cfg, seed + i, dev) for i, dev in enumerate(devices)
-    ]
+    trainers = [_ObjectsTrainer(padded[i * c : (i + 1) * c], cfg, seed + i, dev) for i, dev in enumerate(devices)]
+    _train_interleaved(trainers, cfg)
+    results = [t.result() for t in trainers]
     first = devices[0]
     params = {name: torch.cat([p[name].to(first) for p, _ in results])[:k] for name in results[0][0]}
     losses = np.concatenate([ls for _, ls in results], axis=1)[:, :k]

@@ -4,9 +4,10 @@ Counterpart of ``nerf_prv_tpu/prvnet/cli.py``, with its argument surface
 (≙ ``PRVNet/train_regression.py:256-337``): regression training by default,
 ``--pre_train`` for the single-view PVBPretrain stage, ``--ImageNet`` /
 ``--premodel_file`` for encoder initialization, ``--resnet50`` /
-``--resnet101`` encoder alternatives; plus ``--device`` (default ``cuda``;
-``--device cpu`` trains on the CPU), as the port's pipeline CLI has it.
-Checkpoints are the JAX package's ``.msgpack`` files.
+``--resnet101`` encoder alternatives; plus ``--device``.  As the JAX CLI,
+it trains data-parallel over every device by default (every CUDA card
+here); ``--device cuda:1`` trains on one named card and ``--device cpu`` on
+the CPU.  Checkpoints are the JAX package's ``.msgpack`` files.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--resnet50", action="store_true")
     p.add_argument("--resnet101", action="store_true")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cuda", help="torch device to train on (cuda or cpu)")
+    p.add_argument("--device", default=None,
+                   help="one torch device to train on (cuda:N or cpu); default: every CUDA card, data-parallel")
     return p.parse_args(argv)
 
 
@@ -78,7 +80,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         image_size=args.input_size,
         seed=args.seed,
     )
-    mesh = make_mesh(devices=[args.device])
+    mesh = make_mesh(devices=[args.device] if args.device else None)
     train_split = args.train_split or os.path.join(args.data_path, "train_split.txt")
     val_split = args.val_split or os.path.join(args.data_path, "val_split.txt")
     if args.pre_train:

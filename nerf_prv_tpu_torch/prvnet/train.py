@@ -20,15 +20,25 @@ step as ``BudgetPredictor`` scopes its forward (PyTorch's matmul TF32 flag
 is off by default and stays so), so the trainer and the predictor compute
 the same function.
 
-The trainer takes a port :class:`~..parallel.mesh.Mesh` of one device
-(``cuda:0`` unless the caller passes ``devices=["cpu"]``).  The JAX
-trainer's ``dp`` axis all-reduces gradients over every device; here that
-needs ``torch.distributed`` (ROADMAP.md, the multi-card item), so a mesh of
-more than one device raises.
+The trainer takes a port :class:`~..parallel.mesh.Mesh` (every card by
+default; ``devices=["cpu"]`` for the CPU) and trains data-parallel over its
+``dp`` devices, as the JAX trainer's ``jit(in_shardings=(rep, rep, bs,
+bs))`` does: the master model lives on the first device and a replica on
+each other distinct device (a device listed twice shares its tensors),
+refreshed after each AdamW application; each micro-batch is split over the
+devices, each runs forward and loss on its share, and the global mean
+Σ (nᵢ/N)·lossᵢ on the first device is differentiated, so the devices'
+gradients are summed there (the all-reduce).  The loss is per sample in
+both packages (``resnet.py``'s BatchNorm is an affine map over running
+statistics, ConvNeXt-V2's GRN is per sample), so a shard computes what the
+whole batch computes for its samples.  A micro-batch that does not divide
+over the mesh raises, as the JAX ``jit`` does; evaluation pads each batch
+to the mesh and drops the padding.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -39,7 +49,7 @@ import numpy as np
 import torch
 
 from ..convert import prvnet_state_dict_from_flax, prvnet_state_dict_to_flax
-from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.mesh import Mesh, _axis_devices, make_mesh, pad_to_multiple, shard_batch
 from . import _msgpack
 from .data import PVBDataset, PVBPretrainDataset, resident_arrays
 from .model import IMG_PATTERN, logits_to_budget, make_pvbnet, make_pvbpretrain
@@ -243,37 +253,83 @@ def _accumulate(acc: List[torch.Tensor], grads, n_acc: int) -> List[torch.Tensor
     return acc
 
 
-def _mesh_device(mesh: Optional[Mesh]) -> torch.device:
-    mesh = mesh if mesh is not None else make_mesh()
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"PRVNet training on a mesh of {mesh.size} devices needs the dp gradient all-reduce over "
-            "torch.distributed (ROADMAP.md §1, the multi-card item); pass a mesh of one device"
-        )
-    return torch.device(mesh.devices.flat[0])
+def _concrete(d: torch.device) -> torch.device:
+    """``cuda`` as the card a tensor moved there lands on."""
+    return torch.device("cuda", torch.cuda.current_device()) if d.type == "cuda" and d.index is None else d
+
+
+class _Replicas:
+    """The model on each distinct device along the mesh's ``dp`` axis: the
+    master (the model itself, moved to the first device) and a copy on
+    every other device, whose weights :meth:`refresh` sets to the master's."""
+
+    def __init__(self, model: torch.nn.Module, mesh: Optional[Mesh]):
+        mesh = mesh if mesh is not None else make_mesh()
+        self.devices = [_concrete(d) for d in _axis_devices(mesh, "dp")]
+        self.mesh = make_mesh(("dp",), devices=self.devices)
+        self.first = self.devices[0]
+        self.master = model.to(self.first)
+        self.models = {self.first: model}
+        for d in self.devices:
+            if d not in self.models:
+                self.models[d] = copy.deepcopy(model).to(d)
+
+    @torch.no_grad()
+    def refresh(self) -> None:
+        master = list(self.master.parameters())
+        for d, m in self.models.items():
+            if d != self.first:
+                torch._foreach_copy_(list(m.parameters()), [p.to(d) for p in master])
+
+    def shard(self, *arrays) -> list:
+        """Split each array's leading axis over the devices: one tuple of
+        tensors per device, in mesh order (raises where it does not divide)."""
+        return shard_batch(tuple(torch.as_tensor(a) for a in arrays), self.mesh)
 
 
 class _TrainStep:
     """One micro-step a call: the loss and its gradients, folded into the
     running mean; every ``accum_steps``-th call applies AdamW to the mean
     (at the schedule's lr for this application's count, where there is
-    one).  Returns the micro-batch's loss, left on the device."""
+    one) and refreshes the replicas.  Returns the micro-batch's loss, left
+    on the first device."""
 
-    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: Optional[int], device):
-        self.model, self.cfg, self.device = model, cfg, device
+    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: Optional[int], mesh):
+        self.replicas = _Replicas(model, mesh)
+        self.model, self.cfg, self.device = model, cfg, self.replicas.first
         self.params = list(model.parameters())
         self.opt, self.schedule = make_optimizer(cfg, model, steps_per_epoch)
         self.acc: Optional[List[torch.Tensor]] = None
         self.mini = 0
         self.count = 0
 
-    def __call__(self, views, labels) -> torch.Tensor:
-        views = torch.as_tensor(views, device=self.device)
-        labels = torch.as_tensor(labels, device=self.device)
-        self.model.train()
+    def loss_and_grads(self, parts) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The micro-batch's mean loss and its gradients with respect to the
+        master's parameters, from ``parts``: one (views, labels) pair per
+        device, each on its device.  Each replica's gradients are summed
+        into the master's on the first device."""
+        n = sum(int(labels.shape[0]) for _, labels in parts)
+        models = list(self.replicas.models.values())
+        total = None
         with _f32():
-            loss = loss_fn(self.model, views, labels, self.cfg)
-            grads = torch.autograd.grad(loss, self.params)
+            for views, labels in parts:
+                model = self.replicas.models[views.device]
+                model.train()
+                share = (loss_fn(model, views, labels, self.cfg) * (labels.shape[0] / n)).to(self.device)
+                total = share if total is None else total + share
+            grads = torch.autograd.grad(total, [p for m in models for p in m.parameters()])
+        k = len(self.params)
+        summed = list(grads[:k])
+        for i in range(k, len(grads), k):
+            summed = [a + g.to(self.device) for a, g in zip(summed, grads[i:i + k])]
+        return total.detach(), summed
+
+    def __call__(self, views, labels) -> torch.Tensor:
+        return self.sharded(self.replicas.shard(views, labels))
+
+    def sharded(self, parts) -> torch.Tensor:
+        """A micro-step on a micro-batch already split over the devices."""
+        loss, grads = self.loss_and_grads(parts)
         self.acc = list(grads) if self.mini == 0 else _accumulate(self.acc, grads, self.mini)
         self.mini += 1
         if self.mini == self.cfg.accum_steps:
@@ -284,30 +340,51 @@ class _TrainStep:
                     group["lr"] = self.schedule(self.count)
             self.opt.step()
             self.opt.zero_grad(set_to_none=True)
+            self.replicas.refresh()
             self.acc, self.mini = None, 0
             self.count += 1
-        return loss.detach()
+        return loss
 
 
 def make_train_step(model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: Optional[int] = None,
                     mesh: Optional[Mesh] = None) -> _TrainStep:
-    """``step(views, labels) -> loss``: one micro-step on the mesh's device
-    (≙ ``make_train_step`` with the ``MultiSteps``-wrapped optimizer)."""
-    return _TrainStep(model, cfg, steps_per_epoch, _mesh_device(mesh))
+    """``step(views, labels) -> loss``: one micro-step, data-parallel over
+    the mesh's ``dp`` devices (≙ ``make_train_step`` with the
+    ``MultiSteps``-wrapped optimizer); the model moves to the first device."""
+    return _TrainStep(model, cfg, steps_per_epoch, mesh)
 
 
-def make_eval_step(model: torch.nn.Module, cfg: TrainConfig, mesh: Optional[Mesh] = None):
-    """``predict(views) -> budgets`` on the mesh's device, float32."""
-    device = _mesh_device(mesh)
+class _Predict:
+    """``predict(views) -> budgets`` in float32 over the replicas' devices:
+    the batch split over them (it must divide, as for the JAX ``jit``), each
+    share run on its device's replica; the budgets land on the first
+    device."""
+
+    def __init__(self, replicas: _Replicas, cfg: TrainConfig):
+        self.replicas = replicas
+        self.cfg = cfg
+
+    def __call__(self, views) -> torch.Tensor:
+        return self.sharded(self.replicas.shard(views))
 
     @torch.no_grad()
-    def predict(views) -> torch.Tensor:
-        model.eval()
+    def sharded(self, parts) -> torch.Tensor:
+        """Budgets of a batch already split over the devices."""
+        out = []
         with _f32():
-            logits = model(torch.as_tensor(views, device=device))
-        return logits_to_budget(logits, cfg.min_label, cfg.max_label)
+            for (views,) in parts:
+                model = self.replicas.models[views.device]
+                model.eval()
+                budgets = logits_to_budget(model(views), self.cfg.min_label, self.cfg.max_label)
+                out.append(budgets.to(self.replicas.first))
+        return torch.cat(out)
 
-    return predict
+
+def make_eval_step(model: torch.nn.Module, cfg: TrainConfig, mesh: Optional[Mesh] = None) -> _Predict:
+    """``predict(views) -> budgets`` over the mesh's ``dp`` devices, float32
+    (≙ ``make_eval_step``); the model moves to the first device, and the
+    other devices' copies hold its weights as they are now."""
+    return _Predict(_Replicas(model, mesh), cfg)
 
 
 def _use_resident(cfg: TrainConfig, ds, n_views: int, mesh: Mesh) -> bool:
@@ -330,21 +407,30 @@ def _metrics(preds: np.ndarray, labels: np.ndarray) -> Dict[str, float]:
     }
 
 
-def _resident_metrics(predict, imgs_dev: torch.Tensor, labels: np.ndarray, micro: int) -> Dict[str, float]:
-    """check_accuracy over a device-resident split (the same metrics)."""
-    preds = [predict(imgs_dev[s:s + micro].float() / 255.0) for s in range(0, len(labels), micro)]
-    preds = torch.cat(preds).cpu().numpy() if preds else np.zeros(0, np.float32)
+def _resident_metrics(predict: _Predict, imgs: Dict[torch.device, torch.Tensor], labels: np.ndarray,
+                      micro: int) -> Dict[str, float]:
+    """check_accuracy over a device-resident split (the same metrics):
+    each batch's indices padded to the mesh with index 0 (≙ the JAX
+    version), split over its devices, each share gathered from its device's
+    copy, the padding dropped."""
+    parts = []
+    for s in range(0, len(labels), micro):
+        idx, n_real = pad_to_multiple(np.arange(s, min(s + micro, len(labels))), predict.replicas.mesh.size)
+        shares = predict.replicas.shard(idx)
+        parts.append(predict.sharded([(imgs[i.device].index_select(0, i).float() / 255.0,) for (i,) in shares])[:n_real])
+    preds = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.float32)
     return _metrics(preds, labels)
 
 
 def check_accuracy(predict, dataset, cfg: TrainConfig) -> Dict[str, float]:
     """≙ check_accuracy (train_regression.py:340-432): exact rounded-match
-    accuracy plus L1 distance mean ± std, in micro-batches.  ``predict`` is
-    :func:`make_eval_step`'s (the model holds its parameters, which the JAX
-    function takes apart)."""
+    accuracy plus L1 distance mean ± std, in micro-batches, each padded to
+    the mesh and cut back.  ``predict`` is :func:`make_eval_step`'s (the
+    model holds its parameters, which the JAX function takes apart)."""
     dists, correct, total = [], 0, 0
     for views, labels in dataset.batches(cfg.micro_batch):
-        pred = predict(views).cpu().numpy()
+        views, n_real = pad_to_multiple(views, predict.replicas.mesh.size)
+        pred = predict(views)[:n_real].cpu().numpy()
         correct += int((np.round(pred) == labels).sum())
         total += len(labels)
         dists.extend(np.abs(pred - labels).tolist())
@@ -382,28 +468,32 @@ def _load_params(model: torch.nn.Module, flax_params: Mapping) -> None:
 def _fit(model, train_ds, val_ds, n_views: int, cfg: TrainConfig, mesh: Mesh, steps_per_epoch: int,
          best: dict, best_path: str, log_path: str, tag: str, log_every: int):
     """The epoch loop both trainers share: train (resident or streaming),
-    validate, log a line to ``log_path``, keep the best checkpoint."""
-    device = _mesh_device(mesh)
-    model.to(device)
+    validate, log a line to ``log_path``, keep the best checkpoint.  The
+    model is trained on the mesh's first device (replicated to the others)
+    and the losses are read there."""
     step = make_train_step(model, cfg, steps_per_epoch, mesh)
-    predict = make_eval_step(model, cfg, mesh)
+    predict = _Predict(step.replicas, cfg)  # the replicas the step refreshes after each application
     resident = _use_resident(cfg, train_ds, n_views, mesh)
     if resident:
-        t_imgs, t_labels = (torch.from_numpy(a).to(device) for a in resident_arrays(train_ds))
+        # the uint8 stacks, copied once onto each distinct device
+        devices = step.replicas.models
+        train_arrays = resident_arrays(train_ds)
+        t_imgs, t_labels = ({d: torch.from_numpy(a).to(d) for d in devices} for a in train_arrays)
         if val_ds is train_ds:
-            v_imgs, v_labels = t_imgs, t_labels.cpu().numpy()
+            v_imgs, v_labels = t_imgs, train_arrays[1]
         else:
             v_imgs, v_labels = resident_arrays(val_ds)
-            v_imgs = torch.from_numpy(v_imgs).to(device)
+            v_imgs = {d: torch.from_numpy(v_imgs).to(d) for d in devices}
     rng = np.random.default_rng(cfg.seed)
     os.makedirs(os.path.dirname(best_path) or ".", exist_ok=True)
     for epoch in range(cfg.epochs):
         if resident:
             parts = []
             for grp in _resident_epoch_indices(len(train_ds), cfg, rng):
-                for row in torch.from_numpy(grp).to(device):
-                    views = t_imgs.index_select(0, row).float() / 255.0
-                    parts.append(step(views, t_labels.index_select(0, row)))
+                for row in grp:  # each row split over the devices (≙ PartitionSpec(None, "dp"))
+                    shares = [(t_imgs[i.device].index_select(0, i).float() / 255.0,
+                               t_labels[i.device].index_select(0, i)) for (i,) in step.replicas.shard(row)]
+                    parts.append(step.sharded(shares))
             losses = torch.stack(parts).cpu().numpy()
             metrics = _resident_metrics(predict, v_imgs, v_labels, cfg.micro_batch)
         else:
@@ -439,7 +529,7 @@ def train_regression(
 ) -> Tuple[torch.nn.Module, Dict[str, float]]:
     """Full trainer (≙ main(), train_regression.py:478-683).
 
-    Returns (the trained PVBNet on the mesh's device, best val metrics).
+    Returns (the trained PVBNet on the mesh's first device, best val metrics).
     ``checkpoint_dir`` receives ``best_checkpoint.msgpack`` and
     ``log.jsonl``; an existing best checkpoint is auto-resumed (≙
     --auto_resume).  ``premodel_file`` initializes the encoder (≙
@@ -453,7 +543,6 @@ def train_regression(
     cfg = cfg or TrainConfig()
     pattern = pattern if pattern is not None else IMG_PATTERN[4]
     mesh = mesh if mesh is not None else make_mesh()
-    _mesh_device(mesh)
 
     train_ds = PVBDataset(dataset_root, train_split, pattern, crop=cfg.image_size)
     val_ds = PVBDataset(dataset_root, val_split, pattern, crop=cfg.image_size)
@@ -501,7 +590,6 @@ def pretrain(
     """
     cfg = cfg or TrainConfig()
     mesh = mesh if mesh is not None else make_mesh()
-    _mesh_device(mesh)
 
     train_ds = PVBPretrainDataset(dataset_root, train_split, viewspace_size=viewspace_size, crop=cfg.image_size)
     val_ds = (

@@ -370,7 +370,7 @@ def test_port_imports_no_jax():
         " '.viewspace.hemisphere', '.viewspace.novel', '.ops.splat', '.ops.voxel_cast', '.scene.render',"
         " '.scene.voxel', '.scene.mesh_sampling', '.scene.object_setup', '.runtime.native',"
         " '.pipeline.coverage', '.labeling.lognormal', '.labeling.labels', '.labeling.stats',"
-        " '.labeling.dataset', '.planning.local_path', '.planning.tsp', '.parallel.mesh',"
+        " '.labeling.dataset', '.planning.local_path', '.planning.tsp', '.parallel.mesh', '.parallel.dryrun',"
         " '.nerf.batch_train', '.prvnet.convnextv2', '.prvnet.resnet', '.prvnet.model', '.prvnet.data',"
         " '.prvnet.infer', '.pipeline.nbv', '.pipeline.compare', '.pipeline.modes', '.pipeline.cli',"
         " '.utils.timing', '.utils.visualize', '.servers.infer_server', '.servers.train_server',"

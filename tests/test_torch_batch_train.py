@@ -307,6 +307,33 @@ def test_train_batch_on_a_mesh_pads_and_drops(scenes):
     assert torch.equal(params["grid"][:2], first["grid"]) and torch.equal(params["grid"][2], second["grid"][0])
 
 
+def test_train_batch_interleaves_the_devices_steps(scenes, monkeypatch):
+    """Four objects over a two-device mesh: the devices' steps alternate
+    (step s on each before step s + 1), and the result is bit-equal to
+    training each device's chunk in turn (its own generator, seeded seed +
+    i, and its own Adam)."""
+    (a, _), (b, _) = scenes
+    _, tcfg = _cfgs("voxel", n_steps=4, train_rays=64, train_warmup_steps=2, train_warmup_samples=8)
+    ds = [tr.load_dataset(p) for p in (a, b, b, a)]
+    order = []
+    real = tbt._ObjectsTrainer.step
+
+    def step(self, phase_cfg):
+        order.append(id(self))
+        return real(self, phase_cfg)
+
+    monkeypatch.setattr(tbt._ObjectsTrainer, "step", step)
+    mesh = tmesh.make_mesh(("dp",), devices=["cpu", "cpu"])
+    params, losses = tbt.train_batch(ds, tcfg, seed=5, mesh=mesh, device="cpu")
+    first, second = order[0], order[1]
+    assert first != second and order == [first, second] * tcfg.n_steps
+    in_turn = [tbt._train_objects(ds[2 * i:2 * i + 2], tcfg, 5 + i, "cpu") for i in range(2)]
+    assert losses.shape == (4, 4)
+    np.testing.assert_array_equal(losses, np.concatenate([ls for _, ls in in_turn], axis=1))
+    for name, v in params.items():
+        assert torch.equal(v, torch.cat([p[name] for p, _ in in_turn])), name
+
+
 def test_pad_to_multiple_and_make_mesh_match_jax():
     x = np.arange(21, dtype=np.float32).reshape(21, 1)
     for mult in (1, 4, 8, 21):

@@ -32,7 +32,7 @@ from nerf_prv_tpu.prvnet import model as jmodel
 from nerf_prv_tpu.prvnet import resnet as jresnet
 from nerf_prv_tpu.prvnet import train as jtrain
 from nerf_prv_tpu_torch.convert import prvnet_state_dict_from_flax, prvnet_state_dict_to_flax
-from nerf_prv_tpu_torch.parallel.mesh import make_mesh
+from nerf_prv_tpu_torch.parallel.mesh import make_mesh, pad_to_multiple
 from nerf_prv_tpu_torch.prvnet import _msgpack
 from nerf_prv_tpu_torch.prvnet import cli as tcli
 from nerf_prv_tpu_torch.prvnet import data as tdata
@@ -602,19 +602,146 @@ def test_prvnet_cli_trains_on_the_cpu(dataset, tmp_path):
     assert len(_log(str(tmp_path / "out2" / "pretrain_log.jsonl"))) == 1
     want = vars(jcli.parse_args(["--data_path", "x"]))
     got = vars(tcli.parse_args(["--data_path", "x"]))
-    assert got == dict(want, device="cuda")
+    assert got == dict(want, device=None)  # every card, as the JAX CLI trains over every device
+
+
+TWO = make_mesh(devices=["cpu", "cpu"])
+# two devices against one: the same float32 operations, the loss summed as
+# two halves' means and the gradients as two halves' sums.  Measured at the
+# default lr: epoch losses and val metrics equal to the logged digits,
+# parameters a median 0 lr apart, 2.3e-7 of them beyond 0.01 lr, worst
+# 0.013 lr; the val l1 of batches split 2 + 2 against batches of 3, 7.3e-8
+# relative
+TWO_RTOL = 1e-6
+
+
+def _assert_params_within_lr(got: dict, want: dict, lr: float):
+    """The lr-unit rule of test_parameters_after_three_applications_match_jax."""
+    gaps = np.concatenate([np.abs(got[k] - want[k]).ravel() for k in want]) / lr
+    far = float((gaps > PARAM_FAR_LR).mean())
+    assert np.median(gaps) <= PARAM_MEDIAN_LR and far <= PARAM_FAR_SHARE and gaps.max() <= 6, (
+        float(np.median(gaps)), far, float(gaps.max()))
 
 
 @pytest.mark.parametrize("entry", ["train_regression", "pretrain"])
-def test_trainer_refuses_a_mesh_of_two_devices(dataset, entry, tmp_path):
-    mesh = make_mesh(devices=["cpu", "cpu"])
-    split = os.path.join(dataset, "train_split.txt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_trainer_on_two_devices_matches_one(dataset, entry, tmp_path):
+    """Two epochs on a mesh of the CPU listed twice (the micro-batch split
+    2 + 2, the replica's gradients summed into the master's, the replica
+    refreshed after each application) against a mesh of one: each epoch's
+    loss and val metrics within TWO_RTOL, the parameters within the lr-unit
+    rule of the JAX comparison."""
+    cfg = ttrain.TrainConfig(**_cfg(batch_size=8, accum_steps=2))
+    split, val = os.path.join(dataset, "train_split.txt"), os.path.join(dataset, "val_split.txt")
+    runs = {}
+    for name, mesh in (("one", CPU), ("two", TWO)):
+        out = str(tmp_path / name)
         if entry == "pretrain":
-            ttrain.pretrain(dataset, split, cfg=ttrain.TrainConfig(**_cfg()), checkpoint_dir=str(tmp_path), mesh=mesh)
+            model, _ = ttrain.pretrain(dataset, os.path.join(dataset, "four.txt"), val, cfg=cfg, checkpoint_dir=out,
+                                       mesh=mesh, viewspace_size=5)
+            log = _log(os.path.join(out, "pretrain_log.jsonl"))
         else:
-            ttrain.train_regression(dataset, split, split, cfg=ttrain.TrainConfig(**_cfg()), pattern=[0, 1],
-                                    checkpoint_dir=str(tmp_path), mesh=mesh)
+            model, _ = ttrain.train_regression(dataset, split, val, cfg=cfg, pattern=[0, 1], checkpoint_dir=out,
+                                               mesh=mesh)
+            log = _log(os.path.join(out, "log.jsonl"))
+        runs[name] = ({k: v.detach().numpy() for k, v in model.state_dict().items()}, log)
+    (one, log1), (two, log2) = runs["one"], runs["two"]
+    assert len(log1) == len(log2) == 2
+    for a, b in zip(log2, log1):
+        assert a["accuracy"] == b["accuracy"]
+        for k in ("train_loss", "l1_mean", "l1_std"):
+            assert abs(a[k] - b[k]) <= TWO_RTOL * abs(b[k]), (k, a[k], b[k])
+    assert log1[0]["train_loss"] != log1[1]["train_loss"]
+    _assert_params_within_lr(two, one, cfg.lr)
+
+
+def _capture_grads():
+    """An optax transformation whose state is the last gradient it saw (and
+    whose updates are zero), to read make_train_step's gradients."""
+    return optax.GradientTransformation(
+        lambda p: jax.tree.map(jnp.zeros_like, p),
+        lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g),
+    )
+
+
+def test_two_device_micro_step_matches_jax():
+    """One micro-step's loss and gradients on two devices (the port: the
+    CPU listed twice; JAX: make_train_step on jax.devices()[:2], the batch
+    sharded over dp and the gradients all-reduced) within LOSS_RTOL and
+    GRAD_RTOL of each leaf's largest."""
+    jm, tree = _pvbnet_tree(61)
+    views, labels = _batch(62, 4)
+    cfg_j = jtrain.TrainConfig(**_cfg())
+    step_j = jtrain.make_train_step(jm, cfg_j, _capture_grads(), jmake_mesh(devices=jax.devices()[:2]))
+    params = jax.tree.map(jnp.asarray, tree)
+    _, want_grads, want_loss = step_j(params, _capture_grads().init(params), jnp.asarray(views), jnp.asarray(labels))
+    model = _port_model(tree)
+    step = ttrain.make_train_step(model, ttrain.TrainConfig(**_cfg()), mesh=TWO)
+    loss, grads = step.loss_and_grads(step.replicas.shard(views, labels))
+    assert [tuple(v.shape) for v, _ in step.replicas.shard(views, labels)] == [(2, K, SIZE, SIZE, 3)] * 2
+    assert abs(float(loss) - float(want_loss)) <= LOSS_RTOL * abs(float(want_loss))
+    _assert_close_per_leaf(_flax_grads(model, grads), want_grads, GRAD_RTOL, "two-device gradient")
+
+
+def test_eval_pads_to_the_mesh_and_cuts_back(dataset):
+    """Batches of 3 over two devices: padded to 4 (the last sample, or index
+    0 on the resident path, repeated) and cut back; the predictions and the
+    metrics equal a mesh of one's, on both paths.  An unpadded odd batch
+    raises, as the JAX jit does."""
+    _, tree = _pvbnet_tree(63)
+    cfg = ttrain.TrainConfig(**_cfg(batch_size=3))
+    ds = tdata.PVBDataset(dataset, os.path.join(dataset, "train_split.txt"), [0, 1], crop=SIZE)
+    one, two = ttrain.make_eval_step(_port_model(tree), cfg, CPU), ttrain.make_eval_step(_port_model(tree), cfg, TWO)
+    want = ttrain.check_accuracy(one, ds, cfg)
+    got = ttrain.check_accuracy(two, ds, cfg)
+    assert got["accuracy"] == want["accuracy"]
+    for k in ("l1_mean", "l1_std"):
+        assert abs(got[k] - want[k]) <= TWO_RTOL * max(abs(want[k]), 1e-6), (k, got[k], want[k])
+    imgs, labels = tdata.resident_arrays(ds)
+    res = {d: torch.from_numpy(imgs) for d in two.replicas.models}
+    got = ttrain._resident_metrics(two, res, labels, 3)
+    want = ttrain._resident_metrics(one, {torch.device("cpu"): torch.from_numpy(imgs)}, labels, 3)
+    assert got["accuracy"] == want["accuracy"]
+    for k in ("l1_mean", "l1_std"):
+        assert abs(got[k] - want[k]) <= TWO_RTOL * max(abs(want[k]), 1e-6), (k, got[k], want[k])
+    views = np.stack([ds[i][0] for i in range(3)])
+    padded, n = pad_to_multiple(views, 2)
+    np.testing.assert_allclose(two(padded)[:n].numpy(), one(views).numpy(), rtol=TWO_RTOL, atol=0)
+    with pytest.raises(ValueError, match="divide"):
+        two(views)
+
+
+def test_micro_batch_that_does_not_divide_the_mesh_raises(dataset):
+    """A micro-batch of 3 on two devices: the step raises (the JAX jit does),
+    and the trainer does not take the resident path."""
+    _, tree = _pvbnet_tree(64)
+    cfg = ttrain.TrainConfig(**_cfg(batch_size=3))
+    step = ttrain.make_train_step(_port_model(tree), cfg, mesh=TWO)
+    views, labels = _batch(65, 3)
+    with pytest.raises(ValueError, match="divide"):
+        step(views, labels)
+    ds = tdata.PVBDataset(dataset, os.path.join(dataset, "train_split.txt"), [0, 1], crop=SIZE)
+    assert not ttrain._use_resident(cfg, ds, 2, TWO) and ttrain._use_resident(cfg, ds, 2, CPU)
+
+
+def test_resident_and_streaming_agree_on_two_devices(dataset, tmp_path):
+    """Both data paths on two devices, two accumulated epochs: the resident
+    one (the uint8 stacks copied to each device, each index row split over
+    them) and the streaming one give the same parameters and logs."""
+    runs = {}
+    for resident in (True, False):
+        cfg = ttrain.TrainConfig(**_cfg(batch_size=8, accum_steps=2, device_data=resident))
+        ds = tdata.PVBDataset(dataset, os.path.join(dataset, "train_split.txt"), [0, 1], crop=SIZE)
+        assert ttrain._use_resident(cfg, ds, 2, TWO) == resident
+        model, _ = ttrain.train_regression(dataset, os.path.join(dataset, "train_split.txt"),
+                                           os.path.join(dataset, "val_split.txt"), cfg=cfg, pattern=[0, 1],
+                                           checkpoint_dir=str(tmp_path / str(resident)), mesh=TWO)
+        runs[resident] = (model.state_dict(), _log(str(tmp_path / str(resident) / "log.jsonl")))
+    (res, res_log), (stream, stream_log) = runs[True], runs[False]
+    for k in res:
+        torch.testing.assert_close(res[k], stream[k], rtol=0, atol=0)
+    for a, b in zip(res_log, stream_log):
+        assert a.keys() == b.keys() and abs(a["train_loss"] - b["train_loss"]) <= 1e-6 * b["train_loss"]
+        assert {k: a[k] for k in a if k != "train_loss"} == {k: b[k] for k in b if k != "train_loss"}
 
 
 def test_trainer_runs_on_the_card_by_default(dataset, tmp_path):
