@@ -101,7 +101,18 @@ Phases:
     method 4 through ``pipeline.cli.main`` with that checkpoint, its budget,
     launches and PSNR held as in (12b).  Depth cuts: 24 objects, synthetic
     labels, a regression batch of 16 (the micro-batch is the full
-    configuration's), pretraining on 4 objects, 1 and 2 epochs.
+    configuration's), pretraining on 4 objects, 1 and 2 epochs;
+(14) the multi-device path on one card listed several times: the tp-sharded
+    voxel field, PRVNet data-parallel, ``train_batch`` over dp and the dry
+    run;
+(15) the PRV corpus's entry points (``nerf_prv_tpu_torch.experiments``) at a
+    cut size: (a) one family object through the label protocol (modes 0 ->
+    3 -> 4 -> fit at the 320x180 camera, counts 3, 7 and 100, 300-step
+    fields) with the launches of K8 and the row kernels held to the code's
+    prediction and K8's kept frames bit-equal to ``splat_plain``; (b) the
+    corpus dataset of three objects from the committed labels and split;
+    (c) two epochs of each stage of the tiny@180 recipe on it.  Phase 2b
+    also times the single-object training shapes of the row kernels cold.
 Any failure exits non-zero.  The line before the last is the kernel table
 as JSON, the last line the device.  It imports nothing of JAX or of
 ``nerf_prv_tpu``.
@@ -955,6 +966,19 @@ def phase_row_kernels(dev, source: BatchSource) -> tuple:
                       f"N={b_tight.numel()} K={n_obj} tight-step march, ray-ordered"),
         check_scatter(b_warm, upd(b_warm.numel()), n_obj * n_rows,
                       f"N={b_warm.numel()} K={n_obj} warmup march, ray-ordered"),
+    ]
+    # the single-object training shapes again, cold: each call reads its own
+    # copy of the inputs, where back to back a shape's working set stays in
+    # the L2 (the grid is 8.2 MB) and its bound share can read high
+    gathers += [
+        check_gather(grid_bf, ray_tight, "tight-step march, ray-ordered, cold", cold=True),
+        check_gather(grid_bf, ray_probe, "tight-step probe, ray-ordered, cold", cold=True),
+    ]
+    scatters += [
+        check_scatter(ray_tight, upd(ray_tight.numel()), n_rows,
+                      f"N={ray_tight.numel()} tight-step march, ray-ordered, cold", cold=True),
+        check_scatter(ray_warm, upd(ray_warm.numel()), n_rows,
+                      f"N={ray_warm.numel()} warmup march, ray-ordered, cold", cold=True),
     ]
     gather = dict(
         name="row_gather", route="cuda",
@@ -4090,6 +4114,160 @@ def phase_multidevice(dev, root: str, source: BatchSource, k_gather: dict, k_sca
     log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
+CORPUS_OBJECT = "pla0"  # committed label 30, converged
+CORPUS_COUNTS_MAX = 7  # 15a's coverage counts: 3, 7 and the 100-view test set
+CORPUS_NERF = NerfConfig(n_steps=300)  # 15a's fields: the protocol's, depth cut from 1,200 steps
+# 15a's 100-view field over an all-black frame after 300 steps: measured 15.0 dB (27.68 against 12.69)
+CORPUS_PSNR_MARGIN_DB = 5.0
+CORPUS_DATA = ("blo0", "cup0", "blo1")  # 15b: two committed train objects and one val object
+CORPUS_EPOCHS = 2  # 15c: pretrain and regression epochs, cut from 50 and 800
+
+
+def expected_narrow_eval_gathers(ds, cfg: NerfConfig, dev) -> tuple:
+    """``row_gather`` launches of one voxel ``eval_nerf`` at frames
+    narrower than 512, from the code: ``api.eval_nerf`` renders the frames
+    in groups of 8, ``render_views`` compacts each group's rays that hit
+    the bounding sphere (no gather) and marches them in chunks of
+    ``_default_chunk``, each chunk one level-2 probe gather and one field
+    gather.  How many rays hit is this run's data, counted here.  Returns
+    (launches, each group's hits)."""
+    if ds.camera.width >= 512:
+        raise SystemExit("expected_narrow_eval_gathers counts the per-ray path of frames under 512 wide")
+    chunk = render_mod._default_chunk(cfg)
+    d_cam = render_mod._pixel_dirs(ds.camera, dev)
+    hits = []
+    for start in range(0, ds.n_frames, 8):
+        o = torch.as_tensor(ds.origins[start:start + 8], dtype=torch.float32, device=dev)
+        r = torch.as_tensor(ds.rotations[start:start + 8], dtype=torch.float32, device=dev)
+        _, _, n_hit = render_mod._hit_order(*render_mod._assemble_rays(o, r, d_cam))
+        hits.append(int(n_hit))
+    return 2 * sum(-(-n // chunk) for n in hits), hits
+
+
+@contextlib.contextmanager
+def corpus_recorders(renders: list, evals: list, size_tests: list):
+    """Record, while the PRV corpus runs: each K8 coverage launch's first,
+    middle and last frames (``renders``, as 12b keeps them), each
+    ``eval_nerf`` with the gathers it launched (``evals``), and each size
+    test (``size_tests``: one K8 launch of its 5 probe views)."""
+    real_render, real_eval = coverage_mod.render_pointcloud_views, api_mod.eval_nerf
+    real_size = object_setup_mod._size_test_rate
+
+    def render(points, colors, c2ws, intr, point_size=None, device="cuda"):
+        out = real_render(points, colors, c2ws, intr, point_size=point_size, device=device)
+        keep = sorted({0, len(c2ws) // 2, len(c2ws) - 1})
+        renders.append((points, colors, np.asarray(c2ws)[keep], intr, point_size, len(c2ws), keep, out[keep]))
+        return out
+
+    def evaluate(params, test, ncfg=None):
+        before = row_gather.launches
+        out = real_eval(params, test, ncfg)
+        evals.append((test, ncfg, row_gather.launches - before))
+        return out
+
+    def size_test(*a, **kw):
+        size_tests.append(a[0].shape[0])
+        return real_size(*a, **kw)
+
+    coverage_mod.render_pointcloud_views, api_mod.eval_nerf = render, evaluate
+    object_setup_mod._size_test_rate = size_test
+    try:
+        yield
+    finally:
+        coverage_mod.render_pointcloud_views, api_mod.eval_nerf = real_render, real_eval
+        object_setup_mod._size_test_rate = real_size
+
+
+def phase_corpus(dev, root: str, k_gather: dict, k_scatter: dict, k_splat: dict, card: str) -> None:
+    """(15) The PRV corpus's entry points (``nerf_prv_tpu_torch.experiments``)
+    at a cut size: (a) one family object through the label protocol (modes
+    0 -> 3 -> 4 -> fit at the 320x180 camera, counts 3, 7 and 100, 300-step
+    fields), its launches held to the code's prediction; (b) the corpus
+    dataset of three objects from the committed labels and split; (c) two
+    epochs of each stage of the tiny@180 recipe on it."""
+    from nerf_prv_tpu_torch.experiments import corpus_dataset, label_protocol, prvnet_recipe
+
+    t_phase = time.perf_counter()
+    log("== phase 15: the PRV corpus at a cut size (label protocol, corpus dataset, tiny@180 recipe)")
+    ws = os.path.join(root, "corpus")
+    cfg = label_protocol.pipeline_config(ws).replace(coverage_view_num_max=CORPUS_COUNTS_MAX)
+    counts = label_protocol.fit_counts(cfg) + [100]
+    label_protocol.install_reference_viewspace(cfg, counts + [64], probe=True)
+    object_setup_mod._ensure_viewspace(cfg.viewspace_path, cfg.num_of_views, dev)  # the 540 views, not timed
+    sync()
+    renders, evals, size_tests = [], [], []
+    wrappers = (row_gather, row_scatter_add, splat)
+    for w in wrappers:
+        w.launches = 0
+    t = time.perf_counter()
+    with corpus_recorders(renders, evals, size_tests):
+        out, _ = label_protocol.run_label_protocol(cfg, [CORPUS_OBJECT], device=dev, nerf_cfg=CORPUS_NERF)
+    sync()
+    wall_a = time.perf_counter() - t
+    launched_a = {w.__name__: w.launches for w in wrappers}
+    rec = label_protocol.object_record(cfg, CORPUS_OBJECT)
+    log(f"15a: {CORPUS_OBJECT} through modes 0 -> 3 -> 4 -> fit, counts {counts}, {CORPUS_NERF.n_steps}-step "
+        f"fields: {wall_a:.2f} s; label {out[CORPUS_OBJECT][0]} converged {out[CORPUS_OBJECT][1]}, PSNR by count "
+        f"{ {k: round(v, 3) for k, v in rec['psnr'].items()} }; launches {launched_a}")
+    want_g, want_s = expected_train_launches(CORPUS_NERF)
+    eval_want = [expected_narrow_eval_gathers(test, ncfg or NerfConfig(), dev) for test, ncfg, _ in evals]
+    want = {"row_gather": len(counts) * want_g + sum(e for e, _ in eval_want),
+            "row_scatter_add": len(counts) * want_s, "splat": len(size_tests) + len(counts)}
+    log(f"15a predicted: {want} (row_gather: {len(counts)} trainings x {want_g} + the evals' 2 a chunk of "
+        f"{render_mod._default_chunk(CORPUS_NERF)} sphere hits: {[h for _, h in eval_want]}; splat: "
+        f"{len(size_tests)} size tests + {len(counts)} coverage sets); the evals launched {[g for _, _, g in evals]}")
+    if launched_a != want or [g for _, _, g in evals] != [e for e, _ in eval_want]:
+        raise SystemExit("15a: the label protocol's launches are not the ones the code predicts")
+    check_mode21_frames(renders, dev, where="15a")
+    test_ds = evals[-1][0]
+    base = black_psnr(test_ds)
+    psnrs = [float(v) for v in rec["psnr"].values()]
+    log(f"15a: PSNR of the 100-view field {rec['psnr']['100']:.3f} dB against an all-black frame's {base:.3f} dB "
+        f"(need >= {CORPUS_PSNR_MARGIN_DB} dB above); label.txt parsed, gain {rec.get('gain_at_label')}")
+    if not (all(map(math.isfinite, psnrs)) and rec["psnr"]["100"] >= base + CORPUS_PSNR_MARGIN_DB):
+        raise SystemExit("15a: the protocol's fields are not finite or do not beat a black frame by the margin")
+
+    renders, size_tests = [], []
+    for w in wrappers:
+        w.launches = 0
+    t = time.perf_counter()
+    with corpus_recorders(renders, [], size_tests):
+        loaded = corpus_dataset.render_corpus(cfg, CORPUS_DATA, device=dev)
+        ds = corpus_dataset.assemble_dataset(cfg, names=CORPUS_DATA)
+    sync()
+    launched_b = {w.__name__: w.launches for w in wrappers}
+    roster = corpus_dataset.corpus_roster()
+    log(f"15b: corpus dataset of {list(CORPUS_DATA)}: {time.perf_counter() - t:.2f} s; train {ds['train']}, "
+        f"val {ds['val']}, labels {ds['labels']}; launches {launched_b} ({len(size_tests)} size tests)")
+    n_png = {n: len([f for f in os.listdir(os.path.join(ds["root"], n)) if f.endswith(".png")]) for n in loaded}
+    if (sorted(loaded) != sorted(CORPUS_DATA) or launched_b != {"row_gather": 0, "row_scatter_add": 0,
+                                                                 "splat": len(size_tests) + len(CORPUS_DATA)}
+            or ds["val"] != [n for n in CORPUS_DATA if n in roster["val"]]
+            or any(ds["labels"][n] != roster["labels"][n] for n in CORPUS_DATA)
+            or set(n_png.values()) != {corpus_dataset.N_VIEWS}):
+        raise SystemExit(f"15b: the corpus dataset is not the committed one or its launches are off ({n_png})")
+    check_mode21_frames(renders, dev, where="15b")
+
+    t = time.perf_counter()
+    art = prvnet_recipe.run_two_stage(ds["root"], os.path.join(ws, "tiny180"), seed=0, pretrain_epochs=CORPUS_EPOCHS,
+                                      epochs=CORPUS_EPOCHS, device=dev, log_every=1,
+                                      regression_batch=len(ds["train"]))
+    sync()
+    log(f"15c: tiny@180 recipe, {CORPUS_EPOCHS} + {CORPUS_EPOCHS} epochs (regression batch {len(ds['train'])}): "
+        f"{time.perf_counter() - t:.2f} s; pretrain best L1 {art['pretrain_best_l1']:.3f} ({art['pretrain_seconds']:.2f} "
+        f"s), regression best L1 {art['best_val_l1_mean']:.3f} ({art['train_seconds']:.2f} s), val predictions "
+        f"{ {n: round(v['pred'], 2) for n, v in art['val_per_object'].items()} }")
+    values = [art["pretrain_best_l1"], art["best_val_l1_mean"]] + [v["pred"] for v in art["val_per_object"].values()]
+    if (len(art["val_l1_by_epoch"]) != CORPUS_EPOCHS or not all(map(math.isfinite, values))
+            or not all(13.0 <= v["pred"] <= 58.0 for v in art["val_per_object"].values())):
+        raise SystemExit("15c: the recipe's run is not finite, or its predictions leave [13, 58]")
+    k_gather["launches_corpus"] = launched_a["row_gather"] + launched_b["row_gather"]
+    k_scatter["launches_corpus"] = launched_a["row_scatter_add"] + launched_b["row_scatter_add"]
+    k_splat["launches_corpus"] = launched_a["splat"] + launched_b["splat"]
+    log(f"phase 15 ({card}) took {time.perf_counter() - t_phase:.1f} s; launches: row_gather "
+        f"{k_gather['launches_corpus']}, row_scatter_add {k_scatter['launches_corpus']}, splat {k_splat['launches_corpus']}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -4152,6 +4330,7 @@ def main() -> int:
         phase_prv(dev, root, [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast], card)
         phase_prv_train(dev, root, [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast], card)
         phase_multidevice(dev, root, source, k_gather, k_scatter, card)
+        phase_corpus(dev, root, k_gather, k_scatter, k_splat, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast]}))

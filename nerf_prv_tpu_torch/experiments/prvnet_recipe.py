@@ -1,0 +1,130 @@
+"""The tiny@180 PRVNet recipe on the port: single-view pretrain, then
+regression from the pretrained encoder.
+
+Counterpart of ``experiments/exp_prvnet_r4.py``'s ``run_two_stage``
+(``:74-160``) for ``--phase tiny180`` (``:195-205``) and of its
+``_val_metrics`` (``:41``): ConvNeXt-V2 tiny on the 320x180 dataset,
+CenterCrop 180.
+- Pretrain: batch 64, one micro-batch, 50 epochs, blr 1.5e-3 with the
+  warmup+cosine schedule, ``warmup_epochs = max(50 // 20, 2)``.
+- Regression: batch 64, 800 epochs, constant blr 1.5e-4 (the reference's
+  exact optimizer), five views (``IMG_PATTERN[4]``), the encoder initialised
+  from the pretrain's best checkpoint.
+It trains through the port's ``prvnet/train.py`` (``pretrain``,
+``train_regression``); the seed is ``TrainConfig.seed``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..parallel.mesh import Mesh, make_mesh, pad_to_multiple
+from ..prvnet.data import PVBDataset, read_split
+from ..prvnet.model import IMG_PATTERN
+from ..prvnet.train import (
+    TrainConfig, _load_params, init_model, load_checkpoint, make_eval_step, pretrain, train_regression,
+)
+from .label_protocol import require_device
+
+ARCH = "convnextv2_tiny"
+CROP = 180
+BATCH = 64
+PRETRAIN_EPOCHS = 50
+EPOCHS = 800
+PRETRAIN_BLR = 1.5e-3
+BLR = 1.5e-4
+PATTERN = IMG_PATTERN[4]
+
+
+def pretrain_config(seed: int = 0, epochs: int = PRETRAIN_EPOCHS) -> TrainConfig:
+    """The pretrain stage's config (≙ exp_prvnet_r4.py:89-96 at tiny180)."""
+    return TrainConfig(arch=ARCH, batch_size=BATCH, accum_steps=1, epochs=epochs, image_size=CROP,
+                       blr=PRETRAIN_BLR, use_schedule=True, warmup_epochs=max(epochs // 20, 2), seed=seed)
+
+
+def regression_config(seed: int = 0, epochs: int = EPOCHS) -> TrainConfig:
+    """The regression stage's config (≙ exp_prvnet_r4.py:107-112 at tiny180)."""
+    return TrainConfig(arch=ARCH, batch_size=BATCH, accum_steps=1, epochs=epochs, image_size=CROP,
+                       blr=BLR, use_schedule=False, seed=seed)
+
+
+def val_metrics(tcfg: TrainConfig, ckpt_dir: str, ds_root: str, val_split: str, mesh: Mesh) -> dict:
+    """Per-object val predictions of the best checkpoint, their correlation
+    with the labels and their spread (≙ exp_prvnet_r4.py:41-71)."""
+    params, _ = load_checkpoint(os.path.join(ckpt_dir, "best_checkpoint.msgpack"))
+    model = init_model(tcfg, len(PATTERN))
+    _load_params(model, params)
+    predict = make_eval_step(model, tcfg, mesh)
+    ds = PVBDataset(ds_root, val_split, PATTERN, crop=tcfg.image_size)
+    preds, gts = [], []
+    for views, labels in ds.batches(tcfg.micro_batch):
+        views, n_real = pad_to_multiple(views, mesh.size)
+        preds.extend(predict(views)[:n_real].cpu().numpy().tolist())
+        gts.extend(np.asarray(labels).tolist())
+    preds, gts = np.asarray(preds), np.asarray(gts, dtype=np.float64)
+    corr = float(np.corrcoef(preds, gts)[0, 1]) if preds.std() > 1e-9 and gts.std() > 1e-9 else 0.0
+    return {
+        "val_pred_gt_corr": corr,
+        "val_pred_std": float(preds.std()),
+        "val_gt_std": float(gts.std()),
+        "val_pred_min_max": [float(preds.min()), float(preds.max())],
+        "val_per_object": {n: {"pred": float(p), "gt": int(g)} for n, p, g in zip(ds.names, preds, gts)},
+    }
+
+
+def run_two_stage(ds_root: str, out_dir: str, seed: int = 0, pretrain_epochs: int = PRETRAIN_EPOCHS,
+                  epochs: int = EPOCHS, mesh: Optional[Mesh] = None, device="cuda", log_every: int = 10,
+                  regression_batch: int = BATCH) -> dict:
+    """Pretrain then regression on ``ds_root``'s splits at ``seed``, the
+    checkpoints and logs under ``out_dir`` (``pretrain/``, ``regression/``);
+    returns the reference's artifact fields.  ``mesh`` defaults to one
+    device, ``device``; ``regression_batch`` cuts the regression's batch for
+    a train split smaller than it (a rehearsal).  A finished seed leaves ``result.json`` and is not
+    trained again; a cut one resumes from its best checkpoints, as the
+    trainers do."""
+    done = os.path.join(out_dir, "result.json")
+    if os.path.exists(done):
+        with open(done) as f:
+            return json.load(f)
+    if mesh is None:
+        device = require_device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh(devices=[device])
+    train_split = os.path.join(ds_root, "train_split.txt")
+    val_split = os.path.join(ds_root, "val_split.txt")
+    pre_cfg = pretrain_config(seed, pretrain_epochs)
+    pre_dir = os.path.join(out_dir, "pretrain")
+    t0 = time.perf_counter()
+    _, pre_best = pretrain(ds_root, train_split, val_split, cfg=pre_cfg, checkpoint_dir=pre_dir,
+                           log_every=log_every, mesh=mesh, viewspace_size=64)
+    t_pre = time.perf_counter() - t0
+    tcfg = dataclasses.replace(regression_config(seed, epochs), batch_size=regression_batch)
+    ckpt_dir = os.path.join(out_dir, "regression")
+    t0 = time.perf_counter()
+    _, best = train_regression(ds_root, train_split, val_split, cfg=tcfg, pattern=PATTERN,
+                               checkpoint_dir=ckpt_dir, log_every=log_every, mesh=mesh,
+                               premodel_file=os.path.join(pre_dir, "best_pretrain_checkpoint.msgpack"))
+    t_train = time.perf_counter() - t0
+    art = {
+        "arch": tcfg.arch, "seed": seed, "image_size": CROP, "viewspace_size": 64, "batch_size": tcfg.batch_size,
+        "accum_steps": 1, "blr": tcfg.blr, "use_schedule": tcfg.use_schedule, "pretrain_blr": pre_cfg.blr,
+        "pretrain_schedule": pre_cfg.use_schedule, "pretrain_warmup_epochs": pre_cfg.warmup_epochs,
+        "n_train": len(read_split(train_split)), "n_val": len(read_split(val_split)),
+        "pretrain_epochs": pretrain_epochs, "pretrain_best_l1": pre_best["l1_mean"], "pretrain_seconds": t_pre,
+        "epochs": epochs, "best_val_accuracy": best["accuracy"], "best_val_l1_mean": best["l1_mean"],
+        "best_val_l1_std": best["l1_std"], "train_seconds": t_train,
+    }
+    art.update(val_metrics(tcfg, ckpt_dir, ds_root, val_split, mesh))
+    with open(os.path.join(ckpt_dir, "log.jsonl")) as f:
+        art["val_l1_by_epoch"] = [json.loads(line)["l1_mean"] for line in f]
+    with open(done, "w") as f:
+        json.dump(art, f, indent=1)
+    return art

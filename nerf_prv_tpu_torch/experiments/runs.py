@@ -1,0 +1,83 @@
+"""What the two card checks share: where they write, the card line, a log
+that goes to the terminal and a file, and a pool of worker processes."""
+
+from __future__ import annotations
+
+import json
+import multiprocessing
+import os
+import shutil
+import subprocess
+import time
+from typing import Callable, Iterable, Iterator
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+RESULTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results")
+WORKSPACE = os.path.join(REPO, ".workspace")
+LOG_DIR = os.path.join(REPO, "chiprun_out")
+KERNELS = ("row_gather", "row_scatter_add", "splat", "voxel_cast")
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=30)
+        return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "not measured"
+    except (OSError, subprocess.TimeoutExpired):
+        return "not measured"
+
+
+class Log:
+    """Prints each line with the seconds since the start and appends it to
+    ``path``."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self.path = path
+        self.t0 = time.perf_counter()
+
+    def __call__(self, *parts) -> None:
+        line = f"[{time.perf_counter() - self.t0:8.1f} s] " + " ".join(str(p) for p in parts)
+        print(line, flush=True)
+        with open(self.path, "a") as f:
+            f.write(line + "\n")
+
+
+def write_json(path: str, obj, copy_dir: str = None) -> None:
+    """Write ``obj`` to ``path`` (atomically) and a copy into ``copy_dir``,
+    which a run on another machine brings back."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f, indent=1)
+        f.write("\n")
+    os.replace(tmp, path)
+    if copy_dir:
+        os.makedirs(copy_dir, exist_ok=True)
+        copy = os.path.join(copy_dir, os.path.basename(path))
+        if os.path.abspath(copy) != os.path.abspath(path):
+            shutil.copyfile(path, copy)
+
+
+def build_kernels(device) -> None:
+    """Build the path's kernels once, before any worker starts (each
+    worker would otherwise compile its own copy)."""
+    if str(device).startswith("cuda"):
+        from ..ops import _build
+
+        _build.build(KERNELS)
+
+
+def run_jobs(fn: Callable, jobs: Iterable, workers: int) -> Iterator:
+    """``fn`` over ``jobs``, results as they finish: in this process when
+    ``workers <= 1``, else in that many spawned processes (the protocol's
+    training is host-bound, so several share one card)."""
+    jobs = list(jobs)
+    if workers <= 1 or len(jobs) <= 1:
+        for job in jobs:
+            yield fn(job)
+        return
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(workers, len(jobs))) as pool:
+        yield from pool.imap_unordered(fn, jobs)

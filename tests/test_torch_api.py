@@ -374,7 +374,10 @@ def test_port_imports_no_jax():
         " '.nerf.batch_train', '.prvnet.convnextv2', '.prvnet.resnet', '.prvnet.model', '.prvnet.data',"
         " '.prvnet.infer', '.pipeline.nbv', '.pipeline.compare', '.pipeline.modes', '.pipeline.cli',"
         " '.utils.timing', '.utils.visualize', '.servers.infer_server', '.servers.train_server',"
-        " '.servers.run', '.prvnet.train', '.prvnet.cli', '.prvnet._msgpack')} <= set(names)\n"
+        " '.servers.run', '.prvnet.train', '.prvnet.cli', '.prvnet._msgpack', '.experiments.families',"
+        " '.experiments.label_protocol', '.experiments.corpus_dataset', '.experiments.prvnet_recipe',"
+        " '.experiments.check_labels', '.experiments.check_prvnet', '.experiments.runs',"
+        " '.experiments.time_pretrain_step')} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )

@@ -1,0 +1,286 @@
+"""The port's PRV-corpus experiments (``nerf_prv_tpu_torch/experiments``)
+against the JAX package's: the procedural families, their PLY files, the
+label protocol's configuration and view spaces, modes 0 -> 3 at the
+protocol's camera, the corpus dataset's split, the tiny@180 recipe's
+configurations, and a tiny run of the whole label protocol."""
+
+import dataclasses
+import importlib
+import json
+import os
+import sys
+import zlib
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from nerf_prv_tpu.core.config import CameraConfig as JCameraConfig
+from nerf_prv_tpu.core.config import Config as JConfig
+from nerf_prv_tpu.nerf import model as jm
+from nerf_prv_tpu.pipeline import modes as jmodes
+from nerf_prv_tpu.prvnet.train import TrainConfig as JTrainConfig
+from nerf_prv_tpu.viewspace import hemisphere as jhemi
+from nerf_prv_tpu_torch.core.config import CameraConfig
+from nerf_prv_tpu_torch.experiments import check_labels, check_prvnet, corpus_dataset, families
+from nerf_prv_tpu_torch.experiments import label_protocol as lp
+from nerf_prv_tpu_torch.experiments import prvnet_recipe
+from nerf_prv_tpu_torch.labeling.labels import parse_label_file
+from nerf_prv_tpu_torch.nerf import model as tm
+from nerf_prv_tpu_torch.nerf.api import load_metrics
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "experiments"))
+jfam = importlib.import_module("families")  # experiments/families.py: numpy at import
+jspread = importlib.import_module("exp_label_spread")
+ART = os.path.join(REPO, "experiments", "artifacts")
+
+# a tiny field for the CPU runs: the label protocol's plan, cut in width
+TINY_NERF = dict(voxel_grid_size=12, n_steps=20, train_rays=256, train_warmup_steps=10)
+TINY_CAM = dict(width=40, height=24, fx=28.6, fy=28.5, ppx=20.2, ppy=11.6, model=0)
+# one field trained by each package from its own random stream: their PSNRs
+# agree within a training's spread (tests/test_torch_pipeline_modes.py: 2 dB)
+PSNR_DB = 2.0
+# the 100-view test set of cup0 (130,000 points, 100 x 320 x 180 pixels):
+# the reference projects with an XLA dot, K8 and its plain version sum the
+# same products in another order, so ~4% of the depths differ in the last
+# bit and, rarely, the nearest splat or a rounded pixel flips.  Measured
+# 10 pixels of 5,760,000 in 5 frames; the 3- and 7-view sets are equal
+TEST_SET_PIXELS = 20
+
+
+def _read_json(name):
+    with open(os.path.join(ART, name)) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("hardness", [0.0, 1.0])
+@pytest.mark.parametrize("fam", list(jfam.FAMILIES))
+def test_family_arrays_equal_jax(fam, hardness):
+    """Each family gives the reference's points and colours bit for bit
+    from the same generator state (points float64, colours uint8)."""
+    assert list(families.FAMILIES) == list(jfam.FAMILIES)
+    seed = zlib.crc32(f"{fam}7".encode())
+    want = jfam.FAMILIES[fam](np.random.default_rng(seed), hardness=hardness)
+    got = families.FAMILIES[fam](np.random.default_rng(seed), hardness=hardness)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["cup0", "pla5", "nos7"])
+def test_make_family_object_writes_the_jax_ply_bytes(tmp_path, name):
+    """``make_family_object`` writes the JAX one's PLY byte for byte, and a
+    second call leaves the file as it is (the resume guard)."""
+    got = families.make_family_object(name, str(tmp_path / "port"))
+    want = jfam.make_family_object(name, str(tmp_path / "jax"))
+    assert open(got, "rb").read() == open(want, "rb").read()
+    mtime = os.path.getmtime(got)
+    assert families.make_family_object(name, str(tmp_path / "port")) == got and os.path.getmtime(got) == mtime
+    assert families.object_roster(2, ["cup", "nos"]) == jfam.object_roster(2, ["cup", "nos"])
+
+
+def test_pipeline_config_equals_jax():
+    """``pipeline_config(root)`` is ``exp_label_spread.pipeline_config()``
+    field by field at the reference's root, and gives its fit counts."""
+    got = dataclasses.asdict(lp.pipeline_config(jspread.ROOT))
+    want = dataclasses.asdict(jspread.pipeline_config())
+    assert got == want
+    assert lp.fit_counts(lp.pipeline_config("r")) == list(range(3, 48, 4))
+
+
+def test_shipped_view_spaces_are_the_jax_generators():
+    """The view-space files shipped with the experiments are the JAX
+    package's ``generate_hemisphere`` output byte for byte: mode 0's
+    ``generate_hemisphere(n, seed=n)`` and the size test's 5-view space as
+    the reference's ``load_object`` writes it (seed 0)."""
+    sizes = sorted(int(f[:-4]) for f in os.listdir(lp.VIEWSPACE_DIR) if f.endswith(".txt"))
+    assert sizes == sorted(lp.fit_counts(lp.pipeline_config("r")) + [5, 64, 100])
+    for n in sizes:
+        pts = jhemi.generate_hemisphere(n, seed=n)
+        want = "".join(f"{p[0]:.8g} {p[1]:.8g} {p[2]:.8g}\n" for p in pts)
+        assert open(os.path.join(lp.VIEWSPACE_DIR, f"{n}.txt")).read() == want, n
+    pts = jhemi.generate_hemisphere(5)
+    want = "".join(f"{p[0]:.8g} {p[1]:.8g} {p[2]:.8g}\n" for p in pts)
+    assert open(os.path.join(lp.VIEWSPACE_DIR, "probe", "5.txt")).read() == want
+
+
+def _fill_540(viewspace):
+    """A 540-view file the coverage stages do not read (``load_object``
+    builds the object's view space from it), written first on both sides
+    so neither package spends minutes on a Riesz descent of 540 points."""
+    z = np.linspace(0.0, 1.0, 540, endpoint=False)
+    a = np.arange(540) * 2.399963229728653
+    r = np.sqrt(1.0 - z * z)
+    jhemi.save_view_space(viewspace, np.stack([r * np.cos(a), r * np.sin(a), z], 1))
+
+
+def test_modes_0_to_3_on_cup0_match_jax(tmp_path):
+    """Modes 0 and 3 on ``cup0`` at the protocol's 320x180 camera: the
+    port, reading the shipped view spaces, writes the view-space files,
+    ``size.txt`` and transforms of the JAX package, which generates its
+    own, and the 3- and 7-view coverage PNGs at every pixel (the 100-view
+    test set within ``TEST_SET_PIXELS``)."""
+    over = dict(coverage_view_num_max=7, name_of_pcd="cup0")
+    jcfg = JConfig(**{**dataclasses.asdict(jspread.pipeline_config()), **over,
+                      "camera": JCameraConfig(**dataclasses.asdict(jspread.pipeline_config().camera)),
+                      "workspace": str(tmp_path / "jax" / "ws"), "model_path": str(tmp_path / "models"),
+                      "viewspace_path": str(tmp_path / "jax" / "vs")})
+    tcfg = lp.pipeline_config(str(tmp_path / "port")).replace(model_path=str(tmp_path / "models"), **over)
+    jfam.make_family_object("cup0", os.path.join(jcfg.model_path, "ShapeNet"))
+    for vs in (jcfg.viewspace_path, tcfg.viewspace_path):
+        _fill_540(vs)
+    jmodes.mode_view_cover(jcfg, sizes=[3, 7, 100])
+    jmodes.mode_get_coverage(jcfg, ["cup0"])
+    lp.install_reference_viewspace(tcfg, [3, 7, 100], probe=True)
+    from nerf_prv_tpu_torch.pipeline import modes as tmodes
+
+    tmodes.mode_view_cover(tcfg, sizes=[3, 7, 100], device="cpu")
+    tmodes.mode_get_coverage(tcfg, ["cup0"], device="cpu")
+    for n in (3, 5, 7, 100):
+        name = f"{n}.txt"
+        assert open(os.path.join(tcfg.viewspace_path, name)).read() == open(
+            os.path.join(jcfg.viewspace_path, name)).read(), name
+    jgt = jcfg.replace(name_of_pcd="cup0").gt_path
+    tgt = tcfg.replace(name_of_pcd="cup0").gt_path
+    assert open(os.path.join(tgt, "size.txt")).read() == open(os.path.join(jgt, "size.txt")).read()
+    differ = {}
+    for n in (3, 7, 100):
+        assert open(os.path.join(tgt, f"{n}.json")).read() == open(os.path.join(jgt, f"{n}.json")).read()
+        for i in range(n):
+            png = os.path.join(str(n), f"rgbaClip_{i}.png")
+            got, want = (np.asarray(Image.open(os.path.join(d, png))) for d in (tgt, jgt))
+            differ[n] = differ.get(n, 0) + int((got != want).any(-1).sum())
+    assert differ[3] == differ[7] == 0, differ
+    assert differ[100] <= TEST_SET_PIXELS, differ
+
+
+def test_corpus_dataset_split_is_the_committed_one(tmp_path):
+    """On stub coverage folders (one PNG an object), the corpus dataset
+    holds the committed 117 objects: 90 train, the committed 27 val, the
+    committed 10 test objects left out, each ``view_budget.txt`` the
+    committed label, each object's PNG copied; with the test roster, the
+    label distribution is ``dataset300_stats.json``'s."""
+    stats = _read_json("dataset300_stats.json")
+    committed = {**_read_json("dataset100_labels.json")["objects"], **_read_json("dataset300_labels.json")["objects"]}
+    cfg = lp.pipeline_config(str(tmp_path))
+    roster = corpus_dataset.corpus_roster()
+    png = np.zeros((2, 2, 4), np.uint8)
+    for name in roster["labels"]:
+        out = os.path.join(cfg.replace(name_of_pcd=name).gt_path, "64")
+        os.makedirs(out)
+        Image.fromarray(png, "RGBA").save(os.path.join(out, "rgbaClip_0.png"))
+    ds = corpus_dataset.assemble_dataset(cfg)
+    assert (len(ds["labels"]), len(ds["train"]), len(ds["val"])) == (117, stats["n_train"], stats["n_val"]) == (
+        117, 90, 27)
+    assert ds["val"] == stats["val"] and ds["test"] == stats["test"]
+    assert not set(ds["test"]) & set(ds["labels"]) and set(ds["train"]) | set(ds["val"]) == set(ds["labels"])
+    for split, names in (("train", ds["train"]), ("val", ds["val"])):
+        assert open(os.path.join(ds["root"], f"{split}_split.txt")).read().split() == names
+    for name, label in ds["labels"].items():
+        assert label == committed[name]["label"] and committed[name]["converged"]
+        assert open(os.path.join(ds["root"], name, "view_budget.txt")).read() == str(label)
+        assert os.path.exists(os.path.join(ds["root"], name, "rgbaClip_0.png"))
+    corpus = list(ds["labels"].values()) + [committed[n]["label"] for n in ds["test"]]
+    uniq, cnt = np.unique(corpus, return_counts=True)
+    assert {str(u): int(c) for u, c in zip(uniq, cnt)} == stats["label_distribution"]
+
+
+def test_recipe_configs_equal_the_committed_run():
+    """The two stages' ``TrainConfig`` hold ``prvnet_tiny180.json``'s values
+    and warmup 2, and equal the JAX ``TrainConfig`` the reference's
+    ``run_two_stage`` builds for tiny180, field by field."""
+    rec = _read_json("prvnet_tiny180.json")
+    pre, reg = prvnet_recipe.pretrain_config(), prvnet_recipe.regression_config()
+    for cfg in (pre, reg):
+        assert (cfg.arch, cfg.image_size, cfg.batch_size, cfg.accum_steps) == (
+            rec["arch"], rec["image_size"], rec["batch_size"], rec["accum_steps"])
+    assert (pre.blr, pre.use_schedule, pre.epochs, pre.warmup_epochs) == (
+        rec["pretrain_blr"], rec["pretrain_schedule"], rec["pretrain_epochs"], 2)
+    assert (reg.blr, reg.use_schedule, reg.epochs) == (rec["blr"], rec["use_schedule"], rec["epochs"])
+    assert prvnet_recipe.PATTERN == [0, 1, 2, 3, 4]
+    jpre = JTrainConfig(arch="convnextv2_tiny", batch_size=64, accum_steps=1, epochs=50, image_size=180,
+                        blr=1.5e-3, use_schedule=True, warmup_epochs=max(50 // 20, 2))
+    jreg = JTrainConfig(arch="convnextv2_tiny", batch_size=64, accum_steps=1, epochs=800, image_size=180,
+                        blr=1.5e-4, use_schedule=False)
+    for got, want in ((pre, jpre), (reg, jreg)):
+        want = dataclasses.asdict(want)
+        got = {k: v for k, v in dataclasses.asdict(got).items() if k in want}
+        assert got == want and got["seed"] == 0
+
+
+def test_check_summaries():
+    """The checks' own arithmetic: Spearman with ties, the label limit L
+    from the seeds' ranges plus a view, the predictor's widened intervals,
+    and the committed labels the label check reads."""
+    assert check_labels.spearman([1, 2, 3, 4], [10, 20, 30, 40]) == pytest.approx(1.0)
+    assert check_labels.spearman([1, 2, 2, 3], [3, 2, 2, 1]) == pytest.approx(-1.0)
+    assert check_labels.spearman([1, 2, 3, 4, 5], [2, 1, 4, 3, 5]) == pytest.approx(0.8)
+    lim = check_labels.spread_limit({"cup0": {0: 35, 1: 33, 2: 36}, "pla0": {0: 30, 1: 30, 2: 31}})
+    assert lim["L"] == 4 and lim["ranges"] == {"cup0": 3, "pla0": 1}
+    lim = check_prvnet.seed_limits({"0": dict(best_val_l1_mean=3.0, val_pred_gt_corr=0.7),
+                                    "1": dict(best_val_l1_mean=3.5, val_pred_gt_corr=0.6),
+                                    "2": dict(best_val_l1_mean=3.2, val_pred_gt_corr=0.65)})
+    assert lim["best_val_l1_mean"]["low"] == pytest.approx(2.5) and lim["best_val_l1_mean"]["high"] == pytest.approx(4.0)
+    assert lim["val_pred_gt_corr"]["low"] == pytest.approx(0.5) and lim["val_pred_gt_corr"]["high"] == pytest.approx(0.8)
+    labels = check_labels.committed_labels()
+    assert {n: labels[n]["label"] for n in ("cup0", "pla0", "spi7", "nos7")} == dict(cup0=35, pla0=30, spi7=21, nos7=57)
+    assert len(check_labels.COMPARE_OBJECTS) == 14
+    assert all(labels[n]["converged"] for n in check_labels.COMPARE_OBJECTS)
+    assert check_prvnet.committed()["val_l1_by_epoch"][659] == pytest.approx(2.988, abs=5e-4)
+
+
+def test_entry_points_ask_for_the_cpu_without_a_card(tmp_path):
+    """Without a card the protocol raises at once unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lp.run_label_protocol(lp.pipeline_config(str(tmp_path)), ["uni0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        corpus_dataset.render_corpus(lp.pipeline_config(str(tmp_path)), ["uni0"])
+
+
+def _tiny_protocol_config(root):
+    return lp.pipeline_config(root).replace(camera=CameraConfig(**TINY_CAM), coverage_view_num_max=7, n_steps=20)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tiny_label_protocol_writes_every_artifact(tmp_path, seed):
+    """The label protocol through the port on the CPU at a tiny size (counts
+    3 and 7, 20 steps, 40x24 frames): the PLY, each count's coverage set
+    and metric file, a label file that parses and the label it returns, in
+    the seed's own workspace; the JAX package's modes 3 -> 4 on the same
+    object, view spaces and field size score each count within a
+    training's spread of the port's."""
+    cfg = _tiny_protocol_config(str(tmp_path))
+    _fill_540(cfg.viewspace_path)
+    lp.install_reference_viewspace(cfg, [3, 7, 64, 100], probe=True)
+    out, times = lp.run_label_protocol(cfg, ["cup0"], seed=seed, device="cpu",
+                                       nerf_cfg=tm.NerfConfig(**TINY_NERF))
+    assert set(out) == set(times) == {"cup0"}
+    assert os.path.exists(os.path.join(cfg.model_path, "ShapeNet", "cup0.ply"))
+    gt = lp.seed_workspace(cfg, seed).replace(name_of_pcd="cup0").gt_path
+    assert (seed != 0) == (gt != cfg.replace(name_of_pcd="cup0").gt_path)
+    for n in (3, 7, 100):
+        assert os.path.exists(os.path.join(gt, f"{n}.json"))
+        assert len([f for f in os.listdir(os.path.join(gt, str(n))) if f.endswith(".png")]) == n
+        assert set(load_metrics(os.path.join(gt, f"{n}.txt"))) == {"PSNR", "SSIM"}
+    res = parse_label_file(os.path.join(gt, "label.txt"))
+    assert out["cup0"] == (int(res.gradient_labels[1]), bool(res.converged))
+    rec = lp.object_record(cfg, "cup0", seed)
+    assert rec["label"] == out["cup0"][0] and set(rec["psnr"]) == {"3", "7", "100"}
+    if seed:
+        return
+    # the JAX package's modes 3 and 4 on the same files
+    jcfg = JConfig(**{**dataclasses.asdict(cfg), "camera": JCameraConfig(**TINY_CAM),
+                      "workspace": str(tmp_path / "jax")})
+    jmodes.mode_get_coverage(jcfg, ["cup0"])
+    jmodes.mode_instant_ngp(jcfg, ["cup0"], nerf_cfg=jm.NerfConfig(**TINY_NERF))
+    jgt = jcfg.replace(name_of_pcd="cup0").gt_path
+    for n in (3, 7, 100):
+        assert open(os.path.join(gt, f"{n}.json")).read() == open(os.path.join(jgt, f"{n}.json")).read()
+        got, want = load_metrics(os.path.join(gt, f"{n}.txt")), load_metrics(os.path.join(jgt, f"{n}.txt"))
+        assert abs(got["PSNR"] - want["PSNR"]) <= PSNR_DB, (n, got, want)
