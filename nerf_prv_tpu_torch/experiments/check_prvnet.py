@@ -32,10 +32,10 @@ import time
 
 import numpy as np
 
-from .corpus_dataset import ARTIFACTS, assemble_dataset, corpus_roster, render_job
-from .label_protocol import fit_counts, install_reference_viewspace, pipeline_config, require_device
+from .corpus_dataset import ARTIFACTS, prepare_dataset
+from .label_protocol import require_device
 from .prvnet_recipe import EPOCHS, PRETRAIN_EPOCHS, run_two_stage
-from .runs import LOG_DIR, RESULTS_DIR, WORKSPACE, Log, build_kernels, card_line, run_jobs, write_json
+from .runs import LOG_DIR, RESULTS_DIR, WORKSPACE, Log, build_kernels, card_line, write_json
 
 SEEDS = (0, 1, 2)
 EPOCH_MARKS = (50, 100, 200, 400, 800)
@@ -89,21 +89,11 @@ def main(argv=None) -> int:
     build_kernels(device)
 
     t0 = time.perf_counter()
-    cfg = pipeline_config(args.root)
-    install_reference_viewspace(cfg, fit_counts(cfg) + [5, 64, 100], probe=False)
-    from ..pipeline import modes
-    from ..scene.object_setup import _ensure_viewspace
-
-    modes.mode_view_cover(cfg, sizes=fit_counts(cfg) + [5, 64, 100], device=device)
-    _ensure_viewspace(cfg.viewspace_path, cfg.num_of_views, device)
-    names = list(corpus_roster()["labels"])
-    chunks = [(args.root, names[i::args.workers], str(device)) for i in range(max(args.workers, 1))]
-    loaded = [n for part in run_jobs(render_job, chunks, args.workers) for n in part]
-    ds = assemble_dataset(cfg)
-    result["dataset"] = dict(n_objects=len(ds["labels"]), n_loaded=len(loaded), n_train=len(ds["train"]),
+    ds = prepare_dataset(args.root, args.workers, device)
+    result["dataset"] = dict(n_objects=len(ds["labels"]), n_loaded=ds["n_loaded"], n_train=len(ds["train"]),
                              n_val=len(ds["val"]), n_test=len(ds["test"]), wall_s=time.perf_counter() - t0)
     log(f"dataset: {json.dumps(result['dataset'])}")
-    if (len(ds["train"]), len(ds["val"]), len(loaded)) != (N_TRAIN, N_VAL, len(names)):
+    if (len(ds["train"]), len(ds["val"]), ds["n_loaded"]) != (N_TRAIN, N_VAL, ds["n_names"]):
         write_json(args.out, result, LOG_DIR)
         raise SystemExit(f"the dataset is not the committed one: {result['dataset']}")
 

@@ -127,3 +127,25 @@ def render_job(job: tuple) -> List[str]:
     root, names, device = job
     torch.set_num_threads(1)
     return render_corpus(pipeline_config(root), names, device=device)
+
+
+def prepare_dataset(root: str, workers: int, device) -> dict:
+    """The committed corpus's ``pvb_dataset`` under ``root``, as the
+    predictor check and ``predict_budgets`` build it: the reference's view
+    spaces, the objects' 64-view sets rendered in ``workers`` processes,
+    then :func:`assemble_dataset`.  Returns its dict with ``n_loaded`` (the
+    objects that loaded) and ``n_names`` (the roster's)."""
+    from ..pipeline import modes
+    from ..scene.object_setup import _ensure_viewspace
+    from .label_protocol import pipeline_config
+    from .runs import run_jobs
+
+    cfg = pipeline_config(root)
+    sizes = fit_counts(cfg) + [5, N_VIEWS, 100]
+    install_reference_viewspace(cfg, sizes, probe=False)
+    modes.mode_view_cover(cfg, sizes=sizes, device=device)
+    _ensure_viewspace(cfg.viewspace_path, cfg.num_of_views, device)
+    names = list(corpus_roster()["labels"])
+    chunks = [(root, names[i::workers], str(device)) for i in range(max(workers, 1))]
+    loaded = [n for part in run_jobs(render_job, chunks, workers) for n in part]
+    return dict(assemble_dataset(cfg), n_loaded=len(loaded), n_names=len(names))

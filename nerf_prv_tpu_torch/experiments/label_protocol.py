@@ -15,9 +15,12 @@ workspace held are shipped with this package (``viewspace/``, written by the
 JAX package's ``generate_hemisphere`` on the CPU): mode 0's ``<n>.txt``
 (``generate_hemisphere(n, seed=n)``) and, in ``viewspace/probe``, the 5-view
 size-test space that the reference's ``load_object`` writes when mode 0 has
-not (``generate_hemisphere(5, seed=0)``).  :func:`install_reference_viewspace`
-copies them into a workspace; mode 0 then finds them and generates only what
-is still missing.
+not (``generate_hemisphere(5, seed=0)``).  ``viewspace/seed0`` holds the
+sizes 6..60 that mode 0 did not write, as the reference's
+``_ensure_viewspace`` writes them on demand (``generate_hemisphere(n)``,
+seed 0): the budgets of the held-out evaluation (``mode7_compare``,
+``mode21_table``).  :func:`install_reference_viewspace` copies them into a
+workspace; mode 0 then finds them and generates only what is still missing.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..pipeline import modes
 from .families import make_family_object
 
 VIEWSPACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "viewspace")
+ON_DEMAND_DIR = os.path.join(VIEWSPACE_DIR, "seed0")  # sizes the reference wrote with seed 0
 LABEL_INDEX = 1  # gradient@0.02 dB/view (≙ main.cpp:2641)
 LABEL_GRADIENT = 0.02
 
@@ -65,14 +69,18 @@ def fit_counts(cfg: Config) -> List[int]:
 
 def install_reference_viewspace(cfg: Config, sizes: Sequence[int], probe: bool) -> None:
     """Copy the reference's view-space files for ``sizes`` into
-    ``cfg.viewspace_path`` where missing; ``probe`` adds the size test's
-    5-view file as the reference's ``load_object`` writes it (when 5 is not
-    among mode 0's sizes).  The shipped files are the reference's at
-    ``cfg.seed == 0`` only."""
+    ``cfg.viewspace_path`` where missing: mode 0's file of a size where it
+    wrote one, else the on-demand one (``ON_DEMAND_DIR``).  ``probe`` adds
+    the size test's 5-view file as the reference's ``load_object`` writes it
+    (when 5 is not among mode 0's sizes).  The shipped files are the
+    reference's at ``cfg.seed == 0`` only."""
     if cfg.seed != 0:
         raise ValueError(f"the shipped view spaces are the reference's at seed 0, not {cfg.seed}")
     os.makedirs(cfg.viewspace_path, exist_ok=True)
-    files = [(os.path.join(VIEWSPACE_DIR, f"{n}.txt"), f"{n}.txt") for n in sizes]
+    files = []
+    for n in sizes:
+        src = os.path.join(VIEWSPACE_DIR, f"{n}.txt")
+        files.append((src if os.path.exists(src) else os.path.join(ON_DEMAND_DIR, f"{n}.txt"), f"{n}.txt"))
     if probe:
         files.append((os.path.join(VIEWSPACE_DIR, "probe", "5.txt"), "5.txt"))
     for src, name in files:

@@ -1,4 +1,4 @@
-"""What the two card checks share: where they write, the card line, a log
+"""What the card checks share: where they write, the card line, a log
 that goes to the terminal and a file, and a pool of worker processes."""
 
 from __future__ import annotations

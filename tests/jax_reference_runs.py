@@ -1,0 +1,308 @@
+"""Reference runs of the JAX package on the CPU, beside the port's card runs.
+
+Not a test module (pytest collects ``test_*.py`` only): a script that imports
+both packages, as only the tests may.  It answers where a gap between the
+port's card results and the committed artifacts lies: in the port, or between
+today's JAX package and the run that wrote the artifacts (a TPU).
+
+    # the label protocol (experiments/exp_label_spread.py) on the CPU, full width:
+    JAX_PLATFORMS=cpu python tests/jax_reference_runs.py labels --root WS cup0 nos7
+    # then its labels and per-count PSNRs into labels_check.json, under "jax_cpu":
+    python tests/jax_reference_runs.py merge-labels --root WS
+    # one protocol field (320x180, NerfConfig(n_steps=STEPS)) on both packages on
+    # the CPU, from the port's coverage sets of OBJ at NV views and 100:
+    JAX_PLATFORMS=cpu python tests/jax_reference_runs.py field --root WS --obj uni11 --views 28 \\
+        --steps 1200 --seeds 0 1 --package jax
+    JAX_PLATFORMS=cpu python tests/jax_reference_runs.py field ... --package port
+    # then every such field into fields_cpu.json, beside the committed PSNR and
+    # the port's card runs of the same (object, budget):
+    python tests/jax_reference_runs.py merge-fields --root WS
+    # the tiny@180 recipe's two stages cut in size (ConvNeXt-V2 atto, crop 32,
+    # 2 + 150 epochs), by each package's trainer on the CPU, on the corpus's
+    # dataset as the port renders it (once, under WS/corpus), any number of
+    # processes a package and seed:
+    JAX_PLATFORMS=cpu python tests/jax_reference_runs.py trainers --root WS --package jax --seeds 0
+    python tests/jax_reference_runs.py merge-trainers --root WS
+
+Each writes ``<root>/<what>.json``; a full label protocol takes about 75
+minutes an object on three CPU threads, a 1,200-step field 5-7 minutes.
+"""
+
+import argparse
+import json
+import os
+import platform
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RESULTS = os.path.join(REPO, "nerf_prv_tpu_torch", "experiments", "results")
+LABELS_CHECK = os.path.join(RESULTS, "labels_check.json")
+FIELDS_CPU = os.path.join(RESULTS, "fields_cpu.json")
+TRAINERS_CPU = os.path.join(RESULTS, "trainers_cpu.json")
+CUT = dict(arch="convnextv2_atto", image_size=32, batch_size=64, pretrain_epochs=2, epochs=150)
+
+
+def _cpu() -> str:
+    return f"CPU ({platform.processor() or platform.machine()}, {os.cpu_count()} cores visible)"
+
+
+def run_labels(root: str, names) -> None:
+    """``exp_label_spread.run_label_protocol`` for ``names`` in ``root``
+    (the reference's own view spaces, written by its generator), with each
+    count's PSNR, into ``<root>/labels.json``."""
+    os.environ["PRV_WS_ROOT"] = root
+    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.join(REPO, "experiments"))
+    import exp_label_spread as spread
+    from nerf_prv_tpu.nerf.api import load_metrics
+    from nerf_prv_tpu.pipeline import modes
+
+    cfg = spread.pipeline_config()
+    path = os.path.join(root, "labels.json")
+    out = json.load(open(path)) if os.path.exists(path) else {}
+    for name in names:
+        t0 = time.perf_counter()
+        res, _ = spread.run_label_protocol(cfg, [name])
+        gt = cfg.replace(name_of_pcd=name).gt_path
+        psnr = {str(n): load_metrics(os.path.join(gt, f"{n}.txt"))["PSNR"] for n in modes._coverage_counts(cfg)}
+        out[name] = dict(label=res[name][0], converged=res[name][1], psnr=psnr, wall_s=time.perf_counter() - t0,
+                         platform=_cpu())
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+        print("DONE", name, out[name], flush=True)
+
+
+def merge_labels(root: str) -> None:
+    """``<root>/labels.json`` into ``labels_check.json`` under ``jax_cpu``,
+    beside the port's card runs of the same objects."""
+    with open(os.path.join(root, "labels.json")) as f:
+        jax_runs = json.load(f)
+    with open(LABELS_CHECK) as f:
+        check = json.load(f)
+    check["jax_cpu"] = dict(
+        what="today's JAX package, exp_label_spread.run_label_protocol at the full protocol on the CPU "
+             "(tests/jax_reference_runs.py labels)",
+        runs=jax_runs,
+        port_card={n: {s: check["runs"][f"{n}@{s}"]["psnr"] for s in (0, 1, 2) if f"{n}@{s}" in check["runs"]}
+                   for n in jax_runs},
+    )
+    with open(LABELS_CHECK, "w") as f:
+        json.dump(check, f, indent=1)
+        f.write("\n")
+
+
+def run_field(root: str, obj: str, views: int, steps: int, seeds, package: str) -> None:
+    """One protocol field of ``obj`` at ``views`` per seed, scored on its
+    100-view set, by ``package``; the coverage sets are the port's (equal to
+    the reference's, tests/test_torch_experiments.py), rendered once."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 4))
+    from nerf_prv_tpu_torch.experiments import label_protocol as lp
+    from nerf_prv_tpu_torch.experiments import mode7_compare as m7
+    from nerf_prv_tpu_torch.experiments.families import make_family_object
+    from nerf_prv_tpu_torch.pipeline.coverage import get_coverage
+    from nerf_prv_tpu_torch.scene.object_setup import load_object
+
+    cfg = lp.pipeline_config(root)
+    m7.install_eval_viewspace(cfg)
+    make_family_object(obj, lp.model_dir(cfg))
+    obj_cfg = cfg.replace(name_of_pcd=obj)
+    if not all(os.path.exists(os.path.join(obj_cfg.gt_path, f"{n}.json")) for n in (views, 100)):
+        scene = load_object(obj_cfg, obj, device="cpu")
+        for n in (views, 100):
+            get_coverage(scene, obj_cfg, n, device="cpu")
+    train, test = (os.path.join(obj_cfg.gt_path, f"{n}.json") for n in (views, 100))
+    path = os.path.join(root, f"field_{obj}{views}_{steps}_{package}.json")
+    out = json.load(open(path)) if os.path.exists(path) else {}
+    for seed in seeds:
+        t0 = time.perf_counter()
+        if package == "jax":
+            from nerf_prv_tpu.nerf import NerfConfig
+            from nerf_prv_tpu.nerf.api import run
+
+            m = run(train, test_transforms=test, cfg=NerfConfig(n_steps=steps), seed=seed)
+        else:
+            from nerf_prv_tpu_torch.nerf.api import run
+            from nerf_prv_tpu_torch.nerf.model import NerfConfig
+
+            m = run(train, test_transforms=test, cfg=NerfConfig(n_steps=steps), seed=seed, device="cpu")
+        out[str(seed)] = dict(PSNR=float(m["PSNR"]), SSIM=float(m["SSIM"]), wall_s=time.perf_counter() - t0,
+                              platform=_cpu())
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+        print(package, obj, views, steps, seed, out[str(seed)], flush=True)
+
+
+def merge_fields(root: str) -> None:
+    """``<root>/field_*.json`` into ``fields_cpu.json``: per (object, budget)
+    the PSNR and SSIM of each package on the CPU by NeRF seed, the committed
+    ``mode7_r4.json`` values and the port's card runs (``mode7_check.json``:
+    the comparison's seed-0 field and the limit's seeds), and the mean
+    differences over the pairs."""
+    import glob
+    import re
+
+    with open(os.path.join(REPO, "experiments", "artifacts", "mode7_r4.json")) as f:
+        ref = json.load(f)["rows"]
+    with open(os.path.join(RESULTS, "mode7_check.json")) as f:
+        card = json.load(f)
+    pairs = {}
+    for path in sorted(glob.glob(os.path.join(root, "field_*.json"))):
+        obj, views, steps, package = re.fullmatch(r"field_([a-z]+\d+?)(\d\d)_(\d+)_(jax|port)\.json",
+                                                  os.path.basename(path)).groups()
+        with open(path) as f:
+            runs = json.load(f)
+        key = f"{obj}@{views}"
+        entry = pairs.setdefault(key, dict(steps=int(steps)))
+        entry[f"{package}_cpu"] = runs
+        committed = next(r for r in ref[obj].values() if r["budget"] == int(views))
+        entry["committed"] = {k: committed[k] for k in ("PSNR", "SSIM")}
+        port_card = {"0": {k: card["comparison"][key]["port"][k] for k in ("PSNR", "SSIM")}}
+        if int(views) == 28:
+            port_card.update({str(r["seed"]): {k: r[k] for k in ("PSNR", "SSIM")}
+                              for r in card["limit_runs"].values() if r["name"] == obj})
+        entry["port_card"] = port_card
+
+    def mean(runs):
+        return sum(r["PSNR"] for r in runs.values()) / len(runs)
+
+    both = {k: e for k, e in pairs.items() if "jax_cpu" in e and "port_cpu" in e}
+    seeds = [(k, s) for k, e in both.items() for s in e["jax_cpu"] if s in e["port_cpu"]]
+    diffs = [both[k]["port_cpu"][s]["PSNR"] - both[k]["jax_cpu"][s]["PSNR"] for k, s in seeds]
+    out = dict(
+        what="one protocol field (320x180, NerfConfig(n_steps=steps)) by each package on the CPU from the same "
+             "coverage sets (tests/jax_reference_runs.py field), beside the committed mode7_r4.json value and "
+             "the port's card runs",
+        platform=_cpu(),
+        pairs=pairs,
+        summary=dict(
+            n_pairs=len(both),
+            port_cpu_minus_jax_cpu_by_seed=sum(diffs) / len(diffs),
+            n_port_cpu_higher=sum(d > 0 for d in diffs), n_seed_pairs=len(diffs),
+            jax_cpu_minus_committed=sum(mean(e["jax_cpu"]) - e["committed"]["PSNR"] for e in both.values())
+            / len(both),
+            port_cpu_minus_committed=sum(mean(e["port_cpu"]) - e["committed"]["PSNR"] for e in both.values())
+            / len(both),
+            port_card_minus_committed=sum(mean(e["port_card"]) - e["committed"]["PSNR"] for e in both.values())
+            / len(both),
+        ),
+    )
+    with open(FIELDS_CPU, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+
+
+def run_trainers(root: str, seeds, package: str, workers: int) -> None:
+    """``prvnet_recipe.run_two_stage``'s two stages at the size ``CUT``
+    (the recipe's learning rates and schedules) by ``package``'s trainer on
+    the corpus's dataset under ``<root>/corpus`` (rendered by the port on
+    the CPU where missing), one seed after another, each into
+    ``<root>/trainers_<package>_<seed>/result.json``: its val L1 by epoch and
+    the best checkpoint's val predictions, read by the port's
+    ``val_metrics``."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 4))
+    from nerf_prv_tpu_torch.experiments import prvnet_recipe as recipe
+    from nerf_prv_tpu_torch.experiments.corpus_dataset import prepare_dataset
+    from nerf_prv_tpu_torch.experiments.label_protocol import pipeline_config
+    from nerf_prv_tpu_torch.parallel.mesh import make_mesh
+    from nerf_prv_tpu_torch.prvnet import train as ttrain
+
+    corpus = os.path.join(root, "corpus")
+    ds_root = os.path.join(pipeline_config(corpus).workspace, "pvb_dataset")
+    if not os.path.exists(os.path.join(ds_root, "val_split.txt")):
+        ds_root = prepare_dataset(corpus, workers, "cpu")["root"]
+    if package == "jax":
+        from nerf_prv_tpu.parallel.mesh import make_mesh as jmake_mesh
+        from nerf_prv_tpu.prvnet import train as trainer
+
+        mesh = jmake_mesh()
+    else:
+        trainer, mesh = ttrain, make_mesh(devices=["cpu"])
+    train_split, val_split = (os.path.join(ds_root, f"{s}_split.txt") for s in ("train", "val"))
+    common = dict(arch=CUT["arch"], batch_size=CUT["batch_size"], accum_steps=1, image_size=CUT["image_size"])
+    for seed in seeds:
+        run_dir = os.path.join(root, f"trainers_{package}_{seed}")
+        pre_cfg = trainer.TrainConfig(**common, epochs=CUT["pretrain_epochs"], blr=recipe.PRETRAIN_BLR,
+                                      use_schedule=True, warmup_epochs=max(CUT["pretrain_epochs"] // 20, 2),
+                                      seed=seed)
+        t0 = time.perf_counter()
+        trainer.pretrain(ds_root, train_split, val_split, cfg=pre_cfg, checkpoint_dir=os.path.join(run_dir, "pre"),
+                         mesh=mesh, viewspace_size=64)
+        reg_cfg = trainer.TrainConfig(**common, epochs=CUT["epochs"], blr=recipe.BLR, use_schedule=False, seed=seed)
+        ckpt = os.path.join(run_dir, "reg")
+        trainer.train_regression(ds_root, train_split, val_split, cfg=reg_cfg, pattern=recipe.PATTERN,
+                                 checkpoint_dir=ckpt, mesh=mesh,
+                                 premodel_file=os.path.join(run_dir, "pre", "best_pretrain_checkpoint.msgpack"))
+        val = recipe.val_metrics(ttrain.TrainConfig(**common, seed=seed), ckpt, ds_root, val_split,
+                                 make_mesh(devices=["cpu"]))
+        with open(os.path.join(ckpt, "log.jsonl")) as f:
+            by_epoch = [json.loads(line)["l1_mean"] for line in f]
+        out = dict(val_l1_by_epoch=by_epoch, best_val_l1=min(by_epoch),
+                   **{k: val[k] for k in ("val_pred_gt_corr", "val_pred_min_max", "val_pred_std")},
+                   wall_s=time.perf_counter() - t0, platform=_cpu())
+        with open(os.path.join(run_dir, "result.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        print(package, seed, {k: v for k, v in out.items() if k != "val_l1_by_epoch"}, flush=True)
+
+
+def merge_trainers(root: str) -> None:
+    """``<root>/trainers_<package>_<seed>/result.json`` into
+    ``trainers_cpu.json`` with, per package, the seeds that left the
+    constant predictor (predictions spanning at least
+    ``predictor_gate.MIN_SPAN`` views, correlation at least ``MIN_CORR``)."""
+    import glob
+
+    sys.path.insert(0, REPO)
+    from nerf_prv_tpu_torch.experiments.predictor_gate import MIN_CORR, MIN_SPAN
+
+    out = dict(what="prvnet_recipe's two stages cut to " + json.dumps(CUT) + " with the recipe's learning rates, "
+                    "by each package's trainer on the CPU, on the corpus's dataset as the port renders it "
+                    "(tests/jax_reference_runs.py trainers)", platform=_cpu(), packages={})
+    for package in ("jax", "port"):
+        runs = {}
+        for path in sorted(glob.glob(os.path.join(root, f"trainers_{package}_*", "result.json"))):
+            with open(path) as f:
+                runs[os.path.basename(os.path.dirname(path)).rsplit("_", 1)[1]] = json.load(f)
+        passed = [s for s, r in runs.items() if r["val_pred_gt_corr"] >= MIN_CORR
+                  and r["val_pred_min_max"][1] - r["val_pred_min_max"][0] >= MIN_SPAN]
+        out["packages"][package] = dict(runs=runs, n_seeds=len(runs), seeds_past_the_gate=passed)
+    with open(TRAINERS_CPU, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("what", choices=("labels", "merge-labels", "field", "merge-fields", "trainers", "merge-trainers"))
+    ap.add_argument("names", nargs="*")
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--obj", default="uni11")
+    ap.add_argument("--views", type=int, default=28)
+    ap.add_argument("--steps", type=int, default=1200)
+    ap.add_argument("--seeds", type=int, nargs="*", default=[0], help="none: render the coverage sets only")
+    ap.add_argument("--package", choices=("jax", "port"), default="jax")
+    ap.add_argument("--workers", type=int, default=4, help="render processes for the corpus's dataset")
+    args = ap.parse_args(argv)
+    if args.what == "labels":
+        run_labels(args.root, args.names)
+    elif args.what == "merge-labels":
+        merge_labels(args.root)
+    elif args.what == "merge-fields":
+        merge_fields(args.root)
+    elif args.what == "trainers":
+        run_trainers(args.root, args.seeds, args.package, args.workers)
+    elif args.what == "merge-trainers":
+        merge_trainers(args.root)
+    else:
+        run_field(args.root, args.obj, args.views, args.steps, args.seeds, args.package)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

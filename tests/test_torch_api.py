@@ -377,7 +377,9 @@ def test_port_imports_no_jax():
         " '.servers.run', '.prvnet.train', '.prvnet.cli', '.prvnet._msgpack', '.experiments.families',"
         " '.experiments.label_protocol', '.experiments.corpus_dataset', '.experiments.prvnet_recipe',"
         " '.experiments.check_labels', '.experiments.check_prvnet', '.experiments.runs',"
-        " '.experiments.time_pretrain_step')} <= set(names)\n"
+        " '.experiments.time_pretrain_step', '.experiments.predictor_gate', '.experiments.mode7_compare',"
+        " '.experiments.mode21_table', '.experiments.check_mode7', '.experiments.check_mode21',"
+        " '.experiments.predict_budgets')} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )
