@@ -98,10 +98,11 @@ Phases:
     the pretrain checkpoint, and one streaming epoch against one resident
     epoch; (d) ``BudgetPredictor`` on the written ``best_checkpoint.msgpack``
     against the trainer's eval step, the card against the CPU; (e) mode 21
-    method 4 through ``pipeline.cli.main`` with that checkpoint, its budget,
-    launches and PSNR held as in (12b).  Depth cuts: 24 objects, synthetic
-    labels, a regression batch of 16 (the micro-batch is the full
-    configuration's), pretraining on 4 objects, 1 and 2 epochs;
+    method 4 through ``pipeline.cli.main`` with that checkpoint (``--sizes``:
+    10 coverage sets at most), its budget, launches and PSNR held as in
+    (12b).  Depth cuts: 24 objects, synthetic labels, a regression batch of
+    16 (the micro-batch is the full configuration's), pretraining on 4
+    objects, 1 and 2 epochs, 13e's coverage sets cut from 58;
 (14) the multi-device path on one card listed several times: the tp-sharded
     voxel field, PRVNet data-parallel, ``train_batch`` over dp and the dry
     run;
@@ -123,7 +124,16 @@ Phases:
     on the fields' depth) equal to the JAX package's on the shipped view
     spaces and to the committed artifacts' 4 decimals where those agree,
     every field above an all-black frame by a margin.  Phase 2b also times
-    the batched (K = 4) shapes of the row kernels cold.
+    the batched (K = 4) shapes of the row kernels cold;
+(17) the production label protocol on a textured mesh at full width
+    (``experiments.real_object.run_real_object``): the torus's OBJ + MTL +
+    PNG sampled to 300,000 points, mode 0 from the shipped view spaces, mode
+    3 at the 1280x720 model-2 camera, the 100-view anchor, the sweep and
+    the lognormal fit, cut to counts 3, 15 and 27 and 300-step fields; the
+    launches of K8 and the row kernels held to the code's prediction (the
+    evals' gathers from a replay of each field's level-1 probe), K8's kept
+    frames bit-equal to ``splat_plain``, every field above an all-black
+    frame by a margin.
 Any failure exits non-zero.  The line before the last is the kernel table
 as JSON, the last line the device.  It imports nothing of JAX or of
 ``nerf_prv_tpu``.
@@ -3181,8 +3191,9 @@ def expected_eval_gathers(params, test_json: str, cfg: NerfConfig, dev) -> tuple
     ``_default_chunk`` rays, each chunk one level-2 probe gather and one
     field gather.  How many rays survive level 1 is this run's data: the
     probe is replayed here, group by group, and launches no gather (held).
-    Returns (launches, each group's survivors)."""
-    ds = load_dataset(test_json, with_images=False)
+    ``test_json`` may be the loaded test set.  Returns (launches, each
+    group's survivors)."""
+    ds = load_dataset(test_json, with_images=False) if isinstance(test_json, str) else test_json
     chunk = render_mod._default_chunk(cfg)
     t = render_mod._RENDER_TILE
     ct = max(chunk // t, 1)
@@ -3441,6 +3452,9 @@ STREAM_VAL_ATOL = 0.05
 # budget units: other micro-batch compositions, maybe other cuDNN algorithms
 SERVE_BUDGET_ATOL = 1e-3
 TRAIN_FIELDS = {"epoch", "train_loss", "accuracy", "l1_mean", "l1_std"}
+# 13e's coverage sets beside the full space, the 5 init views, the budget's and the 100-view test set: 10 sets
+# at most, cut from 5..60 (58 sets took 134 s of K8 and PNG encoding on an H100)
+PRV_TRAIN_COVERAGE = (12, 20, 28, 36, 44, 52)
 
 
 def prv_train_labels(dev) -> tuple:
@@ -3782,13 +3796,12 @@ def phase_prv_train(dev, root: str, kernels: list, card: str) -> None:
 
     # (e) mode 21 through the CLI with the trained checkpoint
     cfg_e, yaml_path = prv_train_mode21_config(root)
-    sizes = list(dict.fromkeys([cfg_e.num_of_views, 5, cfg_e.num_of_views, *range(5, 61), 100]))
+    sizes = list(dict.fromkeys([cfg_e.num_of_views, 5, budget, *PRV_TRAIN_COVERAGE, 100]))
     missing = [n for n in sizes if not os.path.exists(os.path.join(cfg_e.gt_path, f"{n}.json"))]
     argv = ["--config", yaml_path, "--mode", "21", "--method", "4", "--objects", OBJ_NAME, "--checkpoint", best_path,
-            "--device", str(dev)]
+            "--device", str(dev), "--sizes", *map(str, sizes)]
     log(f"-- 13e: nerf_prv_tpu_torch.pipeline.cli.main({argv[2:]}) in phase 12's workspace: {len(sizes)} coverage "
-        f"sets ({cfg_e.num_of_views}, 5..60, 100), {len(missing)} of them not rendered yet; the default voxel field, "
-        f"eval on 100 views")
+        f"sets, {len(missing)} of them not rendered yet; the default voxel field, eval on 100 views")
     rc, launched_e, evals, _, stages, wall = drive_mode21(lambda: pipeline_cli.main(argv), record_frames=False)
     walls["mode 21 CLI"] = wall
     log(f"mode 21 through the CLI: exit {rc}, {wall:.2f} s; stages: " + ", ".join(
@@ -4170,11 +4183,12 @@ def expected_narrow_eval_gathers(ds, cfg: NerfConfig, dev) -> tuple:
 
 
 @contextlib.contextmanager
-def corpus_recorders(renders: list, evals: list, size_tests: list):
+def corpus_recorders(renders: list, evals: list, size_tests: list, fields: list = None):
     """Record, while the PRV corpus runs: each K8 coverage launch's first,
     middle and last frames (``renders``, as 12b keeps them), each
-    ``eval_nerf`` with the gathers it launched (``evals``), and each size
-    test (``size_tests``: one K8 launch of its 5 probe views)."""
+    ``eval_nerf`` with the gathers it launched (``evals``; its field's
+    parameters in ``fields`` where given), and each size test
+    (``size_tests``: one K8 launch of its 5 probe views)."""
     real_render, real_eval = coverage_mod.render_pointcloud_views, api_mod.eval_nerf
     real_size = object_setup_mod._size_test_rate
 
@@ -4188,6 +4202,8 @@ def corpus_recorders(renders: list, evals: list, size_tests: list):
         before = row_gather.launches
         out = real_eval(params, test, ncfg)
         evals.append((test, ncfg, row_gather.launches - before))
+        if fields is not None:
+            fields.append(params)
         return out
 
     def size_test(*a, **kw):
@@ -4433,6 +4449,80 @@ def phase_eval(dev, root: str, k_gather: dict, k_scatter: dict, k_splat: dict, c
     log(f"phase 16 ({card}) took {time.perf_counter() - t_phase:.1f} s; launches: {launched}")
 
 
+# --- phase 17: a textured mesh from OBJ to label at full width ---------------------------------------------
+
+REAL_KIND = "torus"  # the committed run: label 20, converged, 24 counts of 2,500-step fields
+REAL_SWEEP = (12, 27)  # 17's sweep (step, max): counts 3, 15, 27 and the 100-view anchor, cut from 3..49 step 2
+REAL_NERF = NerfConfig(n_steps=300)  # the protocol's field (the default voxel field), depth cut from 2,500 steps
+# each field's PSNR on the 100-view set over an all-black frame's after 300 steps: measured 7.13-13.86 dB (18.19
+# at 3 views to 24.93 at 100, against 11.06), about half the smallest
+REAL_PSNR_MARGIN_DB = 3.5
+
+
+def phase_real_object(dev, root: str, k_gather: dict, k_scatter: dict, k_splat: dict, card: str) -> None:
+    """(17) The production label protocol on the textured torus
+    (``experiments.real_object.run_real_object``): OBJ + MTL + PNG through
+    L0's 300,000-point sampling, mode 0 from the shipped files, mode 3 at the
+    1280x720 model-2 camera, the 100-view anchor, the sweep and the fit, with
+    the depth cut (counts 3, 15, 27, 300-step fields); launches held to the
+    code, the kept K8 frames bit-equal, each field's PSNR over black."""
+    from nerf_prv_tpu_torch.experiments import label_protocol, real_object
+
+    t_phase = time.perf_counter()
+    step, cmax = REAL_SWEEP
+    log(f"== phase 17: the textured {REAL_KIND} from OBJ to label at 1280x720 (sweep 3..{cmax} step {step} + 100, "
+        f"{REAL_NERF.n_steps}-step fields of the default voxel field)")
+    ws = os.path.join(root, "real_object")
+    cfg = real_object.real_object_config(REAL_KIND, ws, step, cmax)
+    counts = label_protocol.fit_counts(cfg)
+    object_setup_mod._ensure_viewspace(cfg.viewspace_path, cfg.num_of_views, dev)  # the 540 views, not timed
+    sync()
+    renders, evals, size_tests, fields = [], [], [], []
+    wrappers = (row_gather, row_scatter_add, splat)
+    for w in wrappers:
+        w.launches = 0
+    t = time.perf_counter()
+    with corpus_recorders(renders, evals, size_tests, fields):
+        art, walls = real_object.run_real_object(REAL_KIND, ws, None, step, cmax, device=dev, nerf_cfg=REAL_NERF)
+    sync()
+    wall = time.perf_counter() - t
+    launched = {w.__name__: w.launches for w in wrappers}
+    log(f"17: {wall:.2f} s (" + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()) + f"); label "
+        f"{art['gradient_label_0.02']} converged {art['converged']} on counts {art['view_counts']}, PSNR "
+        f"{art['measured_psnr']} and {art['max_psnr_100']} at 100 views; curve monotone {art['curve_monotone']}, "
+        f"diminishing {art['curve_diminishing_returns']}; launches {launched}")
+
+    # launches from the code: the anchor, then each count's field, trains through train_nerf and is
+    # scored once on the 100-view set; K8 renders each size test and each coverage set once
+    n_fields = len(counts) + 1
+    want_g, want_s = expected_train_launches(REAL_NERF)
+    eval_want = [expected_eval_gathers(p, test, ncfg or NerfConfig(), dev) for p, (test, ncfg, _) in zip(fields, evals)]
+    want = {"row_gather": n_fields * want_g + sum(e for e, _ in eval_want), "row_scatter_add": n_fields * want_s,
+            "splat": len(size_tests) + n_fields}
+    log(f"17 predicted: {want} (row_gather: {n_fields} trainings x {want_g} + the evals' 2 a chunk of "
+        f"{render_mod._default_chunk(REAL_NERF)} level-1 survivors: {[sum(h) for _, h in eval_want]}; splat: "
+        f"{len(size_tests)} size tests + {n_fields} coverage sets); the evals launched {[g for _, _, g in evals]}")
+    if launched != want or len(evals) != n_fields or [g for _, _, g in evals] != [e for e, _ in eval_want]:
+        raise SystemExit("17: the real object's launches are not the ones the code predicts")
+    check_mode21_frames(renders, dev, where="17")
+
+    ref = real_object.committed(REAL_KIND)
+    base = black_psnr(evals[0][0])
+    psnrs = [float(p) for p in art["measured_psnr"]] + [float(art["max_psnr_100"])]
+    log(f"17: PSNRs {psnrs} dB against an all-black frame's {base:.3f} dB (need >= {REAL_PSNR_MARGIN_DB} dB "
+        f"above: the smallest margin {min(psnrs) - base:.3f}); the committed 2,500-step run's at these counts "
+        f"{[ref['measured_psnr'][ref['view_counts'].index(v)] for v in counts if v in ref['view_counts']]} and "
+        f"{ref['max_psnr_100']}")
+    if (sorted(art) != sorted(ref) or len(art["fitted_curve_3_100"]) != len(ref["fitted_curve_3_100"])
+            or not all(map(math.isfinite, art["fitted_curve_3_100"]))):
+        raise SystemExit("17: the artifact does not have the committed run's keys or its curve is not finite")
+    if not all(math.isfinite(p) and p >= base + REAL_PSNR_MARGIN_DB for p in psnrs):
+        raise SystemExit("17: a field is not finite or does not beat a black frame by the margin")
+    for k, name in ((k_gather, "row_gather"), (k_scatter, "row_scatter_add"), (k_splat, "splat")):
+        k["launches_real_object"] = launched[name]
+    log(f"phase 17 ({card}) took {time.perf_counter() - t_phase:.1f} s; launches: {launched}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -4497,6 +4587,7 @@ def main() -> int:
         phase_multidevice(dev, root, source, k_gather, k_scatter, card)
         phase_corpus(dev, root, k_gather, k_scatter, k_splat, card)
         phase_eval(dev, root, k_gather, k_scatter, k_splat, card)
+        phase_real_object(dev, root, k_gather, k_scatter, k_splat, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast]}))

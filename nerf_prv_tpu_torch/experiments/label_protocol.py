@@ -108,11 +108,12 @@ def seed_workspace(cfg: Config, seed: int) -> Config:
     return cfg if seed == 0 else cfg.replace(workspace=f"{cfg.workspace}_seed{seed}")
 
 
-def _instant_ngp_seeded(cfg: Config, name: str, nerf_cfg: NerfConfig, seed: int, device) -> None:
+def _instant_ngp_seeded(cfg: Config, name: str, nerf_cfg: NerfConfig, seed: int, device,
+                        counts: Sequence[int] = None) -> None:
     """Mode 4's one-at-a-time loop (``pipeline/modes.py::mode_instant_ngp``,
     ``batch_size=1``) with the NeRF seed ``seed``: each count's field trained,
     scored on the 100-view set and written as ``<v>.txt``, skipped where the
-    file exists."""
+    file exists.  ``counts`` picks some of mode 4's counts (default all)."""
     from ..nerf.api import eval_nerf, save_metrics, train_nerf
     from ..nerf.rays import load_dataset
     from ..pipeline.coverage import get_coverage
@@ -124,7 +125,7 @@ def _instant_ngp_seeded(cfg: Config, name: str, nerf_cfg: NerfConfig, seed: int,
         return
     test_json = get_coverage(scene, obj_cfg, 100, device=device)
     test_ds = None
-    for n in modes._coverage_counts(obj_cfg):
+    for n in counts or modes._coverage_counts(obj_cfg):
         train_json = get_coverage(scene, obj_cfg, n, device=device)
         metrics_file = os.path.join(obj_cfg.gt_path, f"{n}.txt")
         if os.path.exists(metrics_file):

@@ -60,6 +60,19 @@ def write_json(path: str, obj, copy_dir: str = None) -> None:
             shutil.copyfile(path, copy)
 
 
+def restore_metrics(gt_path: str, fields: dict) -> None:
+    """Write ``<count>.txt`` for each ``{count: {PSNR, SSIM, ...}}`` an
+    earlier call recorded, where the file is missing: a call on another
+    machine starts from an empty workspace, and mode 4 skips a count whose
+    file exists."""
+    from ..nerf.api import save_metrics
+
+    for n, m in fields.items():
+        path = os.path.join(gt_path, f"{n}.txt")
+        if not os.path.exists(path):
+            save_metrics(path, m)
+
+
 def build_kernels(device) -> None:
     """Build the path's kernels once, before any worker starts (each
     worker would otherwise compile its own copy)."""

@@ -31,7 +31,8 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--checkpoint", default=None, help="PRVNet checkpoint (.msgpack or .pth)")
     p.add_argument(
         "--sizes", type=int, nargs="*", default=None,
-        help="view-space sizes for modes 0/20 (default 3..100)",
+        help="view-space sizes for modes 0/20 (default 3..100), and the coverage sets mode 21 renders "
+        "(default the full space, 5..60 and 100)",
     )
     p.add_argument(
         "--warm-start-steps", type=int, default=0,
@@ -118,7 +119,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         modes.mode_get_path_plan(cfg, sizes=sizes, device=dev)
     elif mode == 21:
         method_ids = (args.method,) if args.method is not None else (4, 0, 1, 2, 3)
-        modes.mode_view_planning(cfg, names, method_ids=method_ids, predictor=predictor, device=dev)
+        modes.mode_view_planning(cfg, names, method_ids=method_ids, predictor=predictor, coverage_sizes=args.sizes,
+                                 device=dev)
     else:
         print(f"unknown mode {mode}", file=sys.stderr)
         return 2

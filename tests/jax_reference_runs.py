@@ -23,6 +23,12 @@ today's JAX package and the run that wrote the artifacts (a TPU).
     # processes a package and seed:
     JAX_PLATFORMS=cpu python tests/jax_reference_runs.py trainers --root WS --package jax --seeds 0
     python tests/jax_reference_runs.py merge-trainers --root WS
+    # one field of the textured torus's production protocol (1280x720, 2,500
+    # steps) on both packages on the CPU, from the port's coverage sets at NV
+    # views and 100, then into real_object_cpu.json beside the card's runs:
+    JAX_PLATFORMS=cpu python tests/jax_reference_runs.py real-object --root WS --views 25 --steps 2500 \\
+        --seeds 0 1 --package jax
+    python tests/jax_reference_runs.py merge-real-object --root WS --views 25 --steps 2500
 
 Each writes ``<root>/<what>.json``; a full label protocol takes about 75
 minutes an object on three CPU threads, a 1,200-step field 5-7 minutes.
@@ -195,6 +201,90 @@ def merge_fields(root: str) -> None:
         f.write("\n")
 
 
+def run_real_object_field(root: str, views: int, steps: int, seeds, package: str) -> None:
+    """One field of the textured torus's production protocol (1280x720
+    model-2 camera, ``NerfConfig(n_steps=steps)``) at ``views`` per seed,
+    scored on its 100-view set, by ``package``; the PLY, view spaces and
+    coverage sets are the port's (the PLY and view spaces equal the
+    reference's, tests/test_torch_real_object.py), rendered once."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 4))
+    from nerf_prv_tpu_torch.experiments import real_object as ro
+    from nerf_prv_tpu_torch.pipeline.coverage import get_coverage
+    from nerf_prv_tpu_torch.scene.object_setup import _ensure_viewspace, load_object
+
+    cfg = ro.real_object_config("torus", root, *ro.SWEEPS["torus"])
+    ro.sample_object("torus", root)
+    ro.install_production_viewspace(cfg, ro.fit_counts(cfg) + [100])
+    obj_cfg = cfg.replace(name_of_pcd=ro.object_name("torus"))
+    if not all(os.path.exists(os.path.join(obj_cfg.gt_path, f"{n}.json")) for n in (views, 100)):
+        _ensure_viewspace(cfg.viewspace_path, cfg.num_of_views, "cpu")
+        scene = load_object(obj_cfg, obj_cfg.name_of_pcd, device="cpu")
+        for n in (views, 100):
+            get_coverage(scene, obj_cfg, n, device="cpu")
+    train, test = (os.path.join(obj_cfg.gt_path, f"{n}.json") for n in (views, 100))
+    path = os.path.join(root, f"real_object_torus{views}_{steps}_{package}.json")
+    out = json.load(open(path)) if os.path.exists(path) else {}
+    for seed in seeds:
+        t0 = time.perf_counter()
+        if package == "jax":
+            from nerf_prv_tpu.nerf import NerfConfig
+            from nerf_prv_tpu.nerf.api import run
+
+            m = run(train, test_transforms=test, cfg=NerfConfig(n_steps=steps), seed=seed)
+        else:
+            from nerf_prv_tpu_torch.nerf.api import run
+            from nerf_prv_tpu_torch.nerf.model import NerfConfig
+
+            m = run(train, test_transforms=test, cfg=NerfConfig(n_steps=steps), seed=seed, device="cpu")
+        out[str(seed)] = dict(PSNR=float(m["PSNR"]), SSIM=float(m["SSIM"]), wall_s=time.perf_counter() - t0,
+                              platform=_cpu())
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+        print(package, "torus", views, steps, seed, out[str(seed)], flush=True)
+
+
+def merge_real_object(root: str, views: int, steps: int) -> None:
+    """``<root>/real_object_torus<views>_<steps>_*.json`` into
+    ``real_object_cpu.json``: each package's PSNR on the CPU by NeRF seed,
+    the committed calibration's, the port's card runs (``real_object_check.json``)
+    and the differences."""
+    with open(os.path.join(REPO, "experiments", "artifacts", "real_object_calibration.json")) as f:
+        ref = json.load(f)
+    with open(os.path.join(RESULTS, "real_object_check.json")) as f:
+        card = json.load(f)
+    runs = {}
+    for package in ("jax", "port"):
+        with open(os.path.join(root, f"real_object_torus{views}_{steps}_{package}.json")) as f:
+            runs[f"{package}_cpu"] = json.load(f)
+    committed = ref["measured_psnr"][ref["view_counts"].index(views)]
+    port_card = {k.split("@")[1]: v[str(views)] for k, v in card["fields"].items() if k.startswith("torus@")}
+
+    def mean(r):
+        return sum(x["PSNR"] for x in r.values()) / len(r)
+
+    seeds = [s for s in runs["jax_cpu"] if s in runs["port_cpu"]]
+    out = dict(
+        what=f"one field of the textured torus's production protocol (1280x720 model 2, {views} views, "
+             f"NerfConfig(n_steps={steps})) by each package on the CPU from the same coverage sets "
+             "(tests/jax_reference_runs.py real-object), beside the committed real_object_calibration.json "
+             "value and the port's card runs",
+        platform=_cpu(), views=views, steps=steps, committed=committed, port_card=port_card, **runs,
+        summary=dict(
+            port_cpu_minus_jax_cpu_by_seed={s: runs["port_cpu"][s]["PSNR"] - runs["jax_cpu"][s]["PSNR"]
+                                            for s in seeds},
+            jax_cpu_minus_committed=mean(runs["jax_cpu"]) - committed,
+            port_cpu_minus_committed=mean(runs["port_cpu"]) - committed,
+            port_card_minus_committed=mean(port_card) - committed,
+        ),
+    )
+    with open(os.path.join(RESULTS, "real_object_cpu.json"), "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+
+
 def run_trainers(root: str, seeds, package: str, workers: int) -> None:
     """``prvnet_recipe.run_two_stage``'s two stages at the size ``CUT``
     (the recipe's learning rates and schedules) by ``package``'s trainer on
@@ -279,7 +369,8 @@ def merge_trainers(root: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("labels", "merge-labels", "field", "merge-fields", "trainers", "merge-trainers"))
+    ap.add_argument("what", choices=("labels", "merge-labels", "field", "merge-fields", "trainers", "merge-trainers",
+                                     "real-object", "merge-real-object"))
     ap.add_argument("names", nargs="*")
     ap.add_argument("--root", required=True)
     ap.add_argument("--obj", default="uni11")
@@ -299,6 +390,10 @@ def main(argv=None) -> int:
         run_trainers(args.root, args.seeds, args.package, args.workers)
     elif args.what == "merge-trainers":
         merge_trainers(args.root)
+    elif args.what == "real-object":
+        run_real_object_field(args.root, args.views, args.steps, args.seeds, args.package)
+    elif args.what == "merge-real-object":
+        merge_real_object(args.root, args.views, args.steps)
     else:
         run_field(args.root, args.obj, args.views, args.steps, args.seeds, args.package)
     return 0

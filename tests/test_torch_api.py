@@ -379,7 +379,8 @@ def test_port_imports_no_jax():
         " '.experiments.check_labels', '.experiments.check_prvnet', '.experiments.runs',"
         " '.experiments.time_pretrain_step', '.experiments.predictor_gate', '.experiments.mode7_compare',"
         " '.experiments.mode21_table', '.experiments.check_mode7', '.experiments.check_mode21',"
-        " '.experiments.predict_budgets')} <= set(names)\n"
+        " '.experiments.predict_budgets', '.experiments.real_object', '.experiments.check_real_object',"
+        " '.experiments.production10')} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )

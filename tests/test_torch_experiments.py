@@ -95,8 +95,9 @@ def test_pipeline_config_equals_jax():
 def test_shipped_view_spaces_are_the_jax_generators():
     """The view-space files shipped with the experiments are the JAX
     package's ``generate_hemisphere`` output byte for byte: mode 0's
-    ``generate_hemisphere(n, seed=n)`` and the size test's 5-view space as
-    the reference's ``load_object`` writes it (seed 0)."""
+    ``generate_hemisphere(n, seed=n)`` (the production grid's in
+    ``production/`` too) and the size test's 5-view space as the reference's
+    ``load_object`` writes it (seed 0)."""
     sizes = sorted(int(f[:-4]) for f in os.listdir(lp.VIEWSPACE_DIR) if f.endswith(".txt"))
     assert sizes == sorted(lp.fit_counts(lp.pipeline_config("r")) + [5, 64, 100])
     for n in sizes:
@@ -106,6 +107,14 @@ def test_shipped_view_spaces_are_the_jax_generators():
     pts = jhemi.generate_hemisphere(5)
     want = "".join(f"{p[0]:.8g} {p[1]:.8g} {p[2]:.8g}\n" for p in pts)
     assert open(os.path.join(lp.VIEWSPACE_DIR, "probe", "5.txt")).read() == want
+    # mode 0's files of the production grid (3, 5, ..., 49 and 100) that the above do not cover
+    prod = os.path.join(lp.VIEWSPACE_DIR, "production")
+    extra = sorted(int(f[:-4]) for f in os.listdir(prod) if f.endswith(".txt"))
+    assert set(range(3, 50, 2)) | {100} <= set(extra) | set(sizes) and not set(extra) & set(sizes)
+    for n in extra:
+        pts = jhemi.generate_hemisphere(n, seed=n)
+        want = "".join(f"{p[0]:.8g} {p[1]:.8g} {p[2]:.8g}\n" for p in pts)
+        assert open(os.path.join(prod, f"{n}.txt")).read() == want, n
 
 
 def _fill_540(viewspace):
