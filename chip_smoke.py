@@ -88,21 +88,22 @@ Phases:
     (1 iteration, 300-step NeRFs), their artifacts and methods 0 and 1's
     choices held to the numpy draws;
 (13) PRVNet training at full width (ConvNeXt-V2 tiny, 720x720, 5 views,
-    float32): (a) 24 seeded variants of phase 10's object through the
+    float32): (a) 12 seeded variants of phase 10's object through the
     coverage path (the size test, 64-view sets, K8; one launch's frames
     bit-equal to ``splat_plain``), labels fit on the card from synthetic
     curves, ``build_dataset``; (b) the peak memory of micro-batches of 2, 4
     and 8 objects, the largest under 70 GB taken, one optimizer application
     of each model timed, profiled and beside its f32 bound, ``pretrain`` on
-    4 objects at batch 64; (c) ``train_regression`` 2 epochs at batch 16 from
+    4 objects at batch 64; (c) ``train_regression`` 2 epochs at batch 8 from
     the pretrain checkpoint, and one streaming epoch against one resident
     epoch; (d) ``BudgetPredictor`` on the written ``best_checkpoint.msgpack``
     against the trainer's eval step, the card against the CPU; (e) mode 21
     method 4 through ``pipeline.cli.main`` with that checkpoint (``--sizes``:
-    10 coverage sets at most), its budget, launches and PSNR held as in
-    (12b).  Depth cuts: 24 objects, synthetic labels, a regression batch of
-    16 (the micro-batch is the full configuration's), pretraining on 4
-    objects, 1 and 2 epochs, 13e's coverage sets cut from 58;
+    6 coverage sets at most), its budget, launches and PSNR held as in
+    (12b).  Depth cuts: 12 objects (24 until the e2e phase came), synthetic
+    labels, a regression batch of 8 (the micro-batch is the full
+    configuration's), pretraining on 4 objects, 1 and 2 epochs, 13e's
+    coverage sets cut from 58;
 (14) the multi-device path on one card listed several times: the tp-sharded
     voxel field, PRVNet data-parallel, ``train_batch`` over dp and the dry
     run;
@@ -133,7 +134,17 @@ Phases:
     launches of K8 and the row kernels held to the code's prediction (the
     evals' gathers from a replay of each field's level-1 probe), K8's kept
     frames bit-equal to ``splat_plain``, every field above an all-black
-    frame by a margin.
+    frame by a margin;
+(18) the end-to-end mode 21 (``experiments.e2e_mode21.run_e2e``): the PRV
+    method, the random baseline and the ensemble-NeRF baseline on ``toy0``
+    at the script's width (the 1280x720 model-2 camera, the 40^3 voxel
+    field at 4,096 rays, a 60-view candidate space, ``ensemble_num=2``),
+    cut to 300-step fields and a budget pinned at 4 (methods 0 and 2 replay
+    it as 3 iterations), ``evaluate=True``: the launches of K8 and the row
+    kernels held to the code's prediction (each training's, each eval's and
+    each screenshot set's), K8's kept frames bit-equal to ``splat_plain``,
+    method 2's choices equal to the plain score's argmax on its
+    screenshots, every final field above an all-black frame by a margin.
 Any failure exits non-zero.  The line before the last is the kernel table
 as JSON, the last line the device.  It imports nothing of JAX or of
 ``nerf_prv_tpu``.
@@ -218,6 +229,8 @@ from nerf_prv_tpu_torch.ops.sorted_grad import _levelwise_indices_weights, table
 from nerf_prv_tpu_torch.ops.splat import splat, splat_plain  # noqa: E402
 from nerf_prv_tpu_torch.ops.voxel_cast import voxel_cast, voxel_cast_plain  # noqa: E402
 from nerf_prv_tpu_torch.convert import prvnet_state_dict_from_flax, prvnet_state_dict_to_flax  # noqa: E402
+from nerf_prv_tpu_torch.experiments import launches as launch_counts  # noqa: E402
+from nerf_prv_tpu_torch.experiments import runs as experiment_runs  # noqa: E402
 from nerf_prv_tpu_torch.pipeline import coverage as coverage_mod  # noqa: E402
 from nerf_prv_tpu_torch.pipeline import modes as modes_mod  # noqa: E402
 from nerf_prv_tpu_torch.pipeline import nbv as nbv_mod  # noqa: E402
@@ -1244,13 +1257,10 @@ def phase_serve_vs_plain(params, ds, cfg):
         raise SystemExit("the card's render disagrees with the CPU's")
 
 
-def expected_train_launches(cfg: NerfConfig) -> tuple:
-    """(row_gather, row_scatter_add) launches of one ``train`` from scratch:
-    a warmup step gathers once (the march) and a tight step twice (the
-    no-grad probe, then the march); every step scatter-adds once."""
-    n_warm = min(cfg.train_warmup_steps, cfg.n_steps) if cfg.train_coarse > 0 else 0
-    probes = 2 if cfg.train_coarse > 0 else 1
-    return n_warm + probes * (cfg.n_steps - n_warm), cfg.n_steps
+# the launch counts the code predicts (shared with the card checks)
+expected_train_launches = launch_counts.train_launches
+expected_eval_gathers = launch_counts.tile_gathers  # one eval_nerf of frames 512 wide or more
+expected_narrow_eval_gathers = launch_counts.narrow_gathers  # one eval_nerf of narrower frames
 
 
 def step_ms(step, n: int) -> float:
@@ -1286,10 +1296,7 @@ def make_stepper(params, cfg: NerfConfig, source: BatchSource, seed: int):
     return step
 
 
-def black_psnr(ds) -> float:
-    """Mean per-frame PSNR of an all-black render against the test set."""
-    gt = ds.pixels[..., :3] * ds.pixels[..., 3:4]
-    return float(np.mean([-10.0 * math.log10(float(np.mean(f ** 2))) for f in gt]))
+black_psnr = experiment_runs.black_psnr  # an all-black frame's PSNR on a test set: the fields' floor
 
 
 # one tight step's three row launches: the sum of their device times from
@@ -3181,41 +3188,6 @@ def mode21_config(root: str):
     return cfg
 
 
-def expected_eval_gathers(params, test_json: str, cfg: NerfConfig, dev) -> tuple:
-    """``row_gather`` launches of one voxel ``eval_nerf``, from the code.
-
-    ``api.eval_nerf`` renders the frames in groups of 8; at 1280 wide
-    ``render_views`` takes the tile path, where level 1 probes every ray of
-    the active 128-ray tiles against the pooled volume (no gather) and
-    compacts the survivors, which ``_probe_march`` takes in chunks of
-    ``_default_chunk`` rays, each chunk one level-2 probe gather and one
-    field gather.  How many rays survive level 1 is this run's data: the
-    probe is replayed here, group by group, and launches no gather (held).
-    ``test_json`` may be the loaded test set.  Returns (launches, each
-    group's survivors)."""
-    ds = load_dataset(test_json, with_images=False) if isinstance(test_json, str) else test_json
-    chunk = render_mod._default_chunk(cfg)
-    t = render_mod._RENDER_TILE
-    ct = max(chunk // t, 1)
-    before = row_gather.launches
-    with torch.no_grad():
-        aux = render_mod.build_render_aux(params, cfg)
-        d_cam = render_mod._pixel_dirs(ds.camera, dev)
-        survivors = []
-        for start in range(0, ds.n_frames, 8):
-            o = torch.as_tensor(ds.origins[start:start + 8], dtype=torch.float32, device=dev)
-            r = torch.as_tensor(ds.rotations[start:start + 8], dtype=torch.float32, device=dev)
-            npad = (-(o.shape[0] * d_cam.shape[0])) % t
-            od_t, order_t, n_act = render_mod._assemble_tiles(o, r, d_cam, t, npad)
-            n_act = int(n_act)
-            n1 = sum(int((render_mod._probe_tiles_l1(od_t, order_t[i:i + ct], cfg, aux)[:, 8] > 0.5).sum())
-                     for i in range(0, n_act, ct))
-            survivors.append(n1)
-    if row_gather.launches != before:
-        raise SystemExit("the level-1 replay launched a gather")
-    return 2 * sum(-(-n // chunk) for n in survivors), survivors
-
-
 def check_mode21_frames(renders: list, dev, where: str = "mode 21") -> None:
     """K8's frames of every coverage set mode 21 (or ``where``) rendered
     (first, middle and last of each launch, kept from the launch's own
@@ -3432,13 +3404,13 @@ def phase_prv(dev, root: str, kernels: list, card: str) -> None:
 
 # --- phase 13: PRVNet training at full width: rendered dataset, pretrain, train, checkpoint, mode 21 -----
 
-TRAIN_CELLS = 8  # (category, label) cells of the split
-TRAIN_PER_CELL = 3  # the holdout split sends two of a cell to train and one to val: 16 + 8 objects
+TRAIN_CELLS = 4  # (category, label) cells of the split; cut from 8 to leave phase 18 room
+TRAIN_PER_CELL = 3  # the holdout split sends two of a cell to train and one to val: 8 + 4 objects
 TRAIN_VIEWS = 64  # each object's coverage set: the pretrain dataset's view space
 TRAIN_SIZE = 720  # the crop PRVNet trains on (TrainConfig.image_size)
 PRETRAIN_OBJECTS = 4  # 4 x 64 = 256 single-view samples, 4 applications at the reference's batch of 64
 PRETRAIN_BATCH = 64
-REG_BATCH = 16  # cut from the reference's 64; the micro-batch is the full configuration's
+REG_BATCH = 8  # cut from the reference's 64 (16 until phase 18 came); the micro-batch is the full configuration's
 REG_EPOCHS = 2
 MICRO_OBJECTS = (2, 4, 8)  # regression micro-batches whose peak memory is measured
 MICRO_MEM_LIMIT = 70e9  # bytes: the largest measured micro-batch under this is trained with
@@ -3452,9 +3424,9 @@ STREAM_VAL_ATOL = 0.05
 # budget units: other micro-batch compositions, maybe other cuDNN algorithms
 SERVE_BUDGET_ATOL = 1e-3
 TRAIN_FIELDS = {"epoch", "train_loss", "accuracy", "l1_mean", "l1_std"}
-# 13e's coverage sets beside the full space, the 5 init views, the budget's and the 100-view test set: 10 sets
-# at most, cut from 5..60 (58 sets took 134 s of K8 and PNG encoding on an H100)
-PRV_TRAIN_COVERAGE = (12, 20, 28, 36, 44, 52)
+# 13e's coverage sets beside the full space, the 5 init views, the budget's and the 100-view test set: 6 sets
+# at most, cut from 5..60 (58 sets took 134 s of K8 and PNG encoding on an H100; 10 until phase 18 came)
+PRV_TRAIN_COVERAGE = (20, 44)
 
 
 def prv_train_labels(dev) -> tuple:
@@ -4161,27 +4133,6 @@ CORPUS_DATA = ("blo0", "cup0", "blo1")  # 15b: two committed train objects and o
 CORPUS_EPOCHS = 2  # 15c: pretrain and regression epochs, cut from 50 and 800
 
 
-def expected_narrow_eval_gathers(ds, cfg: NerfConfig, dev) -> tuple:
-    """``row_gather`` launches of one voxel ``eval_nerf`` at frames
-    narrower than 512, from the code: ``api.eval_nerf`` renders the frames
-    in groups of 8, ``render_views`` compacts each group's rays that hit
-    the bounding sphere (no gather) and marches them in chunks of
-    ``_default_chunk``, each chunk one level-2 probe gather and one field
-    gather.  How many rays hit is this run's data, counted here.  Returns
-    (launches, each group's hits)."""
-    if ds.camera.width >= 512:
-        raise SystemExit("expected_narrow_eval_gathers counts the per-ray path of frames under 512 wide")
-    chunk = render_mod._default_chunk(cfg)
-    d_cam = render_mod._pixel_dirs(ds.camera, dev)
-    hits = []
-    for start in range(0, ds.n_frames, 8):
-        o = torch.as_tensor(ds.origins[start:start + 8], dtype=torch.float32, device=dev)
-        r = torch.as_tensor(ds.rotations[start:start + 8], dtype=torch.float32, device=dev)
-        _, _, n_hit = render_mod._hit_order(*render_mod._assemble_rays(o, r, d_cam))
-        hits.append(int(n_hit))
-    return 2 * sum(-(-n // chunk) for n in hits), hits
-
-
 @contextlib.contextmanager
 def corpus_recorders(renders: list, evals: list, size_tests: list, fields: list = None):
     """Record, while the PRV corpus runs: each K8 coverage launch's first,
@@ -4523,6 +4474,91 @@ def phase_real_object(dev, root: str, k_gather: dict, k_scatter: dict, k_splat: 
     log(f"phase 17 ({card}) took {time.perf_counter() - t_phase:.1f} s; launches: {launched}")
 
 
+# --- phase 18: the end-to-end mode 21 at full width ------------------------------------------------------
+
+E2E_NERF = NerfConfig(n_steps=300)  # the default voxel field, depth cut from 2,500 steps
+E2E_BUDGET = 4  # pinned, cut from the predictor's 36: methods 0 and 2 replay it as 3 iterations
+E2E_MEMBERS = 2  # the script's ensemble_num: method 2 trains two fields an iteration
+# each method's final field on the 100-view set over an all-black frame's after 300 steps
+E2E_PSNR_MARGIN_DB = 3.0
+
+
+def phase_e2e(dev, root: str, k_gather: dict, k_scatter: dict, k_splat: dict, card: str) -> None:
+    """(18) ``experiments.e2e_mode21.run_e2e``, the end-to-end mode 21 with
+    the PRV method, the random baseline and the ensemble-NeRF baseline, at
+    the script's width (toy0, the 1280x720 model-2 camera, the 40^3 voxel
+    field at 4,096 rays, a 60-view candidate space, ``ensemble_num=2``) with
+    the depth cut: 300-step fields, the budget pinned at 4 by a fixed-budget
+    predictor, ``evaluate=True``.  Launches held to the code, the kept K8
+    frames bit-equal, method 2's choices equal to the plain score's argmax
+    on its screenshots, each final field's PSNR over black."""
+    from nerf_prv_tpu_torch.experiments import check_e2e_mode21 as e2e_check
+    from nerf_prv_tpu_torch.experiments import e2e_mode21, mode7_compare, mode21_table
+    from nerf_prv_tpu_torch.experiments.toy import TOY_NAME, write_toy
+
+    t_phase = time.perf_counter()
+    ws = os.path.join(root, "e2e")
+    cfg = e2e_mode21.e2e_config(ws, evaluate=True).replace(n_steps=E2E_NERF.n_steps)
+    log(f"== phase 18: e2e mode 21, methods {e2e_mode21.METHODS} on {TOY_NAME} at {cfg.camera.width}x"
+        f"{cfg.camera.height}, {cfg.num_of_views} candidate views, ensemble {cfg.ensemble_num}, budget pinned at "
+        f"{E2E_BUDGET}, {E2E_NERF.n_steps}-step fields, evaluate on 100 views")
+    write_toy(ws)
+    mode7_compare.install_eval_viewspace(cfg)  # the view spaces 5..60 (mode 0 writes none), not timed
+    pred = mode21_table.PinnedPredictor({TOY_NAME: E2E_BUDGET})
+    # derived before the run: each method's fields, screenshot sets and evals; K8's sets
+    plans = {m: e2e_check.planned_work(m, E2E_BUDGET, cfg.replace(method_of_IG=m)) for m in e2e_mode21.METHODS}
+    sets = list(dict.fromkeys([cfg.num_of_views, 5, E2E_BUDGET, 100]))
+    log(f"18 derived before the run: {json.dumps(plans)}; K8: the size test's tries + sets {sets}")
+    sync()
+    renders, size_tests, trainings, evals, shots = [], [], [], [], []
+    for w in (row_gather, row_scatter_add, splat):
+        w.launches = 0
+    stages = {}
+    t = time.perf_counter()
+    with corpus_recorders(renders, [], size_tests), e2e_check.nbv_recorder(trainings, evals, shots), \
+            stage_timers(stages):
+        out = e2e_mode21.run_e2e(ws, device=dev, cfg=cfg, nerf_cfg=E2E_NERF, predictor=pred,
+                                 coverage_sizes=[E2E_BUDGET, 100])
+    sync()
+    wall = time.perf_counter() - t
+    launched = {w.__name__: w.launches for w in (row_gather, row_scatter_add, splat)}
+    rows = {m: e2e_check.read_path(r["path"]) for m, r in out["methods"].items()}
+    log("18 stages (host clock, each ended by a sync): " + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()))
+    log(f"18: {wall:.2f} s; " + "; ".join(
+        f"method {m} budget {r.get('budget', '-')} chose {r['chosen']} moved {r['movement_total']:.4f} run_time "
+        f"{r['run_time']:.2f} s PSNR {r['PSNR']:.3f} SSIM {r['SSIM']:.4f}" for m, r in rows.items()))
+
+    want, per_call = e2e_check.expected_launches(trainings, evals, shots, E2E_NERF, dev)
+    want["splat"] = len(size_tests) + len(sets)
+    n = {k: sum(p[k] for p in plans.values()) for k in ("fields", "screenshots", "evals")}
+    log(f"18 predicted: {want} (row_gather: {n['fields']} trainings x {expected_train_launches(E2E_NERF)[0]} + "
+        f"{n['evals']} evals' 2 a chunk of level-1 survivors {[sum(d) for d in per_call['eval_data']]} + "
+        f"{n['screenshots']} screenshot sets' 2 a chunk of a 16-frame group's sphere hits "
+        f"{per_call['screenshot_hits']}; splat: {len(size_tests)} size tests + {len(sets)} sets); launched {launched}")
+    if (launched != want or (len(trainings), len(shots), len(evals)) != (n["fields"], n["screenshots"], n["evals"])
+            or any(g != e for g, e in per_call["evals"] + per_call["screenshots"])):
+        raise SystemExit("18: the e2e run's launches are not the ones the code predicts")
+    check_mode21_frames(renders, dev, where="18")
+
+    if rows[4].get("budget") != E2E_BUDGET or any(len(r["chosen"]) != E2E_BUDGET - 1 for r in rows.values()):
+        raise SystemExit("18: a method did not plan or replay the pinned budget")
+    choices = e2e_check.ensemble_choices(out["methods"][2]["path"], rows[2]["first_view"], rows[2]["chosen"],
+                                         cfg.num_of_views, E2E_MEMBERS)
+    log(f"18: method 2's choices {[c['card'] for c in choices]} against the plain score's argmax on its screenshots "
+        f"{[c['plain'] for c in choices]} (top-2 gaps {[round(c['top2_gap'], 3) for c in choices]})")
+    if any(c["card"] != c["plain"] for c in choices):
+        raise SystemExit("18: method 2 did not choose the plain score's argmax")
+    base = black_psnr(os.path.join(cfg.gt_path, "100.json"))
+    psnrs = [rows[m]["PSNR"] for m in e2e_mode21.METHODS]
+    log(f"18: final PSNRs {[round(p, 3) for p in psnrs]} dB against an all-black frame's {base:.3f} dB (need >= "
+        f"{E2E_PSNR_MARGIN_DB} dB above: the smallest margin {min(psnrs) - base:.3f})")
+    if not all(math.isfinite(p) and p >= base + E2E_PSNR_MARGIN_DB for p in psnrs):
+        raise SystemExit("18: a final field is not finite or does not beat a black frame by the margin")
+    for k, name in ((k_gather, "row_gather"), (k_scatter, "row_scatter_add"), (k_splat, "splat")):
+        k["launches_e2e"] = launched[name]
+    log(f"phase 18 ({card}) took {time.perf_counter() - t_phase:.1f} s; launches: {launched}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -4588,6 +4624,7 @@ def main() -> int:
         phase_corpus(dev, root, k_gather, k_scatter, k_splat, card)
         phase_eval(dev, root, k_gather, k_scatter, k_splat, card)
         phase_real_object(dev, root, k_gather, k_scatter, k_splat, card)
+        phase_e2e(dev, root, k_gather, k_scatter, k_splat, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast]}))

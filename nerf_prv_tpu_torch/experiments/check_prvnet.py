@@ -1,8 +1,14 @@
-"""The predictor check: the tiny@180 PRVNet recipe trained by the port on
-the PRV corpus, against the JAX package's committed ``prvnet_tiny180.json``
-(best val L1 2.988, val correlation 0.7425) and its 800-epoch log.
+"""The predictor check: a PRVNet recipe trained by the port on the PRV
+corpus, against the JAX package's committed record of it.
 
-    python -m nerf_prv_tpu_torch.experiments.check_prvnet [--seeds 0 1 2]
+    python -m nerf_prv_tpu_torch.experiments.check_prvnet [--seeds 0 1 2] [--recipe tiny180|atto180]
+
+``--recipe tiny180`` (the default): ``prvnet_tiny180.json`` (best val L1
+2.988, val correlation 0.7425) and its 800-epoch log.  ``--recipe atto180``:
+the corpus point of the scaling curve, ``prvnet_r5_scaling.json`` (best val
+L1 2.973, correlation 0.6812, 200 epochs) and its log.  Each seed's
+per-object val predictions stand beside the committed ones, with their span
+(a collapse to the constant predictor shows as a span near 0).
 
 On the card:
 1. The 117 dataset objects' PLYs (families) and 64-view sets at the 320x180
@@ -16,11 +22,12 @@ On the card:
    to the result file and the log first; then the committed best val L1 and
    correlation held to them.  A limit is the three seeds' range widened by
    that range on each side: [min - r, max + r], r = max - min.  The val L1
-   at epochs 50, 100, 200, 400 and 800 stands beside the committed log's.
+   at epochs 50, 100, 200, 400 and 800 (atto: 10, 25, 50, 100, 200) stands beside
+   the committed log's.
 
 The workspace is ``.workspace/prvnet_check``, the result
-``nerf_prv_tpu_torch/experiments/results/prvnet_tiny180_check.json``; the log
-and a copy of the result go to the gitignored ``runs.LOG_DIR``.
+``nerf_prv_tpu_torch/experiments/results/prvnet_<recipe>_check.json``; the
+log and a copy of the result go to the gitignored ``runs.LOG_DIR``.
 """
 
 from __future__ import annotations
@@ -34,22 +41,42 @@ import numpy as np
 
 from .corpus_dataset import ARTIFACTS, prepare_dataset
 from .label_protocol import require_device
-from .prvnet_recipe import EPOCHS, PRETRAIN_EPOCHS, run_two_stage
+from .prvnet_recipe import RECIPES, run_two_stage
 from .runs import LOG_DIR, RESULTS_DIR, WORKSPACE, Log, build_kernels, card_line, write_json
 
 SEEDS = (0, 1, 2)
-EPOCH_MARKS = (50, 100, 200, 400, 800)
 N_TRAIN, N_VAL = 90, 27
 METRICS = ("best_val_l1_mean", "val_pred_gt_corr")
+# recipe -> (committed record, its checkpoint directory, val L1 epochs shown)
+COMMITTED = {
+    "tiny180": ("prvnet_tiny180.json", "prvnet_tiny180_ckpt", (50, 100, 200, 400, 800)),
+    "atto180": ("prvnet_r5_scaling.json", "prvnet_r5_ckpt", (10, 25, 50, 100, 200)),
+}
+# the committed atto@180 point trained 200 epochs where the round-3 point it
+# is set beside on the scaling curve trained 40 (ADVICE.md:5)
+ATTO_EPOCHS_NOTE = ("prvnet_r5_scaling.json trained 200 epochs on 90 objects; the round-3 point beside it on the "
+                    "scaling curve (86 objects) trained 40, so the two differ in epochs as well as in corpus size")
 
 
-def committed(art: str = ARTIFACTS) -> dict:
-    """The JAX package's tiny@180 record and its val L1 by epoch."""
-    with open(os.path.join(art, "prvnet_tiny180.json")) as f:
+def committed(art: str = ARTIFACTS, recipe: str = "tiny180") -> dict:
+    """The JAX package's record of ``recipe`` and its val L1 by epoch."""
+    record, ckpt, _ = COMMITTED[recipe]
+    with open(os.path.join(art, record)) as f:
         rec = json.load(f)
-    with open(os.path.join(art, "prvnet_tiny180_ckpt", "log.jsonl")) as f:
+    with open(os.path.join(art, ckpt, "log.jsonl")) as f:
         rec["val_l1_by_epoch"] = [json.loads(line)["l1_mean"] for line in f]
     return rec
+
+
+def prediction_table(seeds: dict, ref: dict) -> dict:
+    """Each val object's committed prediction and label beside each seed's
+    prediction, and each seed's span (max - min prediction)."""
+    rows = {n: dict(gt=r["gt"], committed=r["pred"], **{f"seed {s}": a["val_per_object"].get(n, {}).get("pred")
+                                                         for s, a in seeds.items()})
+            for n, r in ref["val_per_object"].items()}
+    span = {f"seed {s}": a["val_pred_min_max"][1] - a["val_pred_min_max"][0] for s, a in seeds.items()}
+    span["committed"] = ref["val_pred_min_max"][1] - ref["val_pred_min_max"][0]
+    return dict(per_object=rows, span=span)
 
 
 def seed_limits(seeds: dict) -> dict:
@@ -69,17 +96,27 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS))
     ap.add_argument("--workers", type=int, default=6)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--pretrain-epochs", type=int, default=PRETRAIN_EPOCHS)
-    ap.add_argument("--epochs", type=int, default=EPOCHS)
-    ap.add_argument("--out", default=os.path.join(RESULTS_DIR, "prvnet_tiny180_check.json"))
-    ap.add_argument("--log", default=os.path.join(LOG_DIR, "prvnet_check.log"))
+    ap.add_argument("--recipe", choices=sorted(RECIPES), default="tiny180")
+    ap.add_argument("--pretrain-epochs", type=int, default=None, help="default: the recipe's")
+    ap.add_argument("--epochs", type=int, default=None, help="default: the recipe's")
+    ap.add_argument("--out", default=None, help="default: results/prvnet_<recipe>_check.json")
+    ap.add_argument("--log", default=None)
     args = ap.parse_args(argv)
+    name = args.recipe
+    _, _, default_pre, default_epochs = RECIPES[name]
+    args.pretrain_epochs = default_pre if args.pretrain_epochs is None else args.pretrain_epochs
+    args.epochs = default_epochs if args.epochs is None else args.epochs
+    args.out = args.out or os.path.join(RESULTS_DIR, f"prvnet_{name}_check.json")
     device = require_device(args.device)
-    log = Log(args.log)
+    log = Log(args.log or os.path.join(LOG_DIR, f"prvnet_{name}_check.log"))
     card = card_line()
     recipe = dict(pretrain_epochs=args.pretrain_epochs, epochs=args.epochs)
+    if name != "tiny180":  # the tiny@180 result file, which a later call resumes, has no name
+        recipe["name"] = name
     log(f"predictor check on {card}; seeds {args.seeds}, recipe {recipe}")
     result = dict(card=card, cards=[card], recipe=recipe, seeds={})
+    if name == "atto180":
+        result["epochs_note"] = ATTO_EPOCHS_NOTE
     if os.path.exists(args.out):
         with open(args.out) as f:
             prev = json.load(f)
@@ -100,21 +137,23 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         if str(seed) in result["seeds"]:
             continue
-        art = run_two_stage(ds["root"], os.path.join(args.root, f"tiny180_seed{seed}"), seed=seed,
-                            pretrain_epochs=args.pretrain_epochs, epochs=args.epochs, device=device)
+        art = run_two_stage(ds["root"], os.path.join(args.root, f"{name}_seed{seed}"), seed=seed,
+                            pretrain_epochs=args.pretrain_epochs, epochs=args.epochs, device=device, recipe=name)
         result["seeds"][str(seed)] = art
         write_json(args.out, result, LOG_DIR)
         log(f"seed {seed}: best val L1 {art['best_val_l1_mean']:.4f}, corr {art['val_pred_gt_corr']:.4f}, "
             f"pretrain {art['pretrain_seconds']:.1f} s (best L1 {art['pretrain_best_l1']:.4f}), "
-            f"regression {art['train_seconds']:.1f} s")
+            f"regression {art['train_seconds']:.1f} s; predictions span {art['val_pred_min_max']}")
 
-    ref = committed()
-    marks = [e for e in EPOCH_MARKS if e <= args.epochs]
+    ref = committed(recipe=name)
+    marks = [e for e in COMMITTED[name][2] if e <= args.epochs]
     result["val_l1_at_epoch"] = {
         "committed": {e: ref["val_l1_by_epoch"][e - 1] for e in marks},
         **{f"seed {s}": {e: a["val_l1_by_epoch"][e - 1] for e in marks} for s, a in result["seeds"].items()},
     }
     log(f"val L1 at epochs {marks}: {json.dumps(result['val_l1_at_epoch'])}")
+    result["predictions"] = prediction_table(result["seeds"], ref)
+    log(f"prediction spans (views): {json.dumps(result['predictions']['span'])}")
     if len(result["seeds"]) < len(SEEDS):
         write_json(args.out, result, LOG_DIR)
         log(f"{len(result['seeds'])} of {len(SEEDS)} seeds in; the limits wait for the rest")

@@ -1,5 +1,5 @@
-"""The tiny@180 PRVNet recipe on the port: single-view pretrain, then
-regression from the pretrained encoder.
+"""The PRVNet recipes on the port: single-view pretrain, then regression
+from the pretrained encoder, as tiny@180 and as the atto@180 corpus point.
 
 Counterpart of ``experiments/exp_prvnet_r4.py``'s ``run_two_stage``
 (``:74-160``) for ``--phase tiny180`` (``:195-205``) and of its
@@ -10,6 +10,14 @@ CenterCrop 180.
 - Regression: batch 64, 800 epochs, constant blr 1.5e-4 (the reference's
   exact optimizer), five views (``IMG_PATTERN[4]``), the encoder initialised
   from the pretrain's best checkpoint.
+The atto@180 arm (``--phase atto``, ``:214-230``, as ``run_r5b_queue.sh:59-67``
+ran it for ``prvnet_r5_scaling.json`` with ``PRV4_PRETRAIN_BLR=1.5e-4
+PRV4_PRETRAIN_SCHEDULE=0 --epochs 200``) is a second pair of configs:
+ConvNeXt-V2 atto, CenterCrop 180.
+- Pretrain: batch 32, one micro-batch, 2 epochs, constant blr 1.5e-4,
+  ``warmup_epochs = max(2 // 20, 2)``.
+- Regression: batch 8, one micro-batch, 200 epochs, constant blr 1.5e-4,
+  five views.
 It trains through the port's ``prvnet/train.py`` (``pretrain``,
 ``train_regression``); the seed is ``TrainConfig.seed``.
 """
@@ -42,6 +50,13 @@ PRETRAIN_BLR = 1.5e-3
 BLR = 1.5e-4
 PATTERN = IMG_PATTERN[4]
 
+ATTO_ARCH = "convnextv2_atto"
+ATTO_BATCH = 8
+ATTO_PRETRAIN_BATCH = 32
+ATTO_PRETRAIN_EPOCHS = 2
+ATTO_EPOCHS = 200
+ATTO_PRETRAIN_BLR = 1.5e-4
+
 
 def pretrain_config(seed: int = 0, epochs: int = PRETRAIN_EPOCHS) -> TrainConfig:
     """The pretrain stage's config (≙ exp_prvnet_r4.py:89-96 at tiny180)."""
@@ -53,6 +68,27 @@ def regression_config(seed: int = 0, epochs: int = EPOCHS) -> TrainConfig:
     """The regression stage's config (≙ exp_prvnet_r4.py:107-112 at tiny180)."""
     return TrainConfig(arch=ARCH, batch_size=BATCH, accum_steps=1, epochs=epochs, image_size=CROP,
                        blr=BLR, use_schedule=False, seed=seed)
+
+
+def atto_pretrain_config(seed: int = 0, epochs: int = ATTO_PRETRAIN_EPOCHS) -> TrainConfig:
+    """The atto arm's pretrain config (≙ exp_prvnet_r4.py:89-96 at atto with
+    the queue's PRV4_PRETRAIN_BLR=1.5e-4, PRV4_PRETRAIN_SCHEDULE=0)."""
+    return TrainConfig(arch=ATTO_ARCH, batch_size=ATTO_PRETRAIN_BATCH, accum_steps=1, epochs=epochs,
+                       image_size=CROP, blr=ATTO_PRETRAIN_BLR, use_schedule=False,
+                       warmup_epochs=max(epochs // 20, 2), seed=seed)
+
+
+def atto_regression_config(seed: int = 0, epochs: int = ATTO_EPOCHS) -> TrainConfig:
+    """The atto arm's regression config (≙ exp_prvnet_r4.py:107-112 at atto)."""
+    return TrainConfig(arch=ATTO_ARCH, batch_size=ATTO_BATCH, accum_steps=1, epochs=epochs, image_size=CROP,
+                       blr=BLR, use_schedule=False, seed=seed)
+
+
+# recipe -> (pretrain config, regression config, pretrain epochs, regression epochs)
+RECIPES = {
+    "tiny180": (pretrain_config, regression_config, PRETRAIN_EPOCHS, EPOCHS),
+    "atto180": (atto_pretrain_config, atto_regression_config, ATTO_PRETRAIN_EPOCHS, ATTO_EPOCHS),
+}
 
 
 def val_metrics(tcfg: TrainConfig, ckpt_dir: str, ds_root: str, val_split: str, mesh: Mesh) -> dict:
@@ -79,14 +115,15 @@ def val_metrics(tcfg: TrainConfig, ckpt_dir: str, ds_root: str, val_split: str, 
     }
 
 
-def run_two_stage(ds_root: str, out_dir: str, seed: int = 0, pretrain_epochs: int = PRETRAIN_EPOCHS,
-                  epochs: int = EPOCHS, mesh: Optional[Mesh] = None, device="cuda", log_every: int = 10,
-                  regression_batch: int = BATCH) -> dict:
-    """Pretrain then regression on ``ds_root``'s splits at ``seed``, the
-    checkpoints and logs under ``out_dir`` (``pretrain/``, ``regression/``);
-    returns the reference's artifact fields.  ``mesh`` defaults to one
-    device, ``device``; ``regression_batch`` cuts the regression's batch for
-    a train split smaller than it (a rehearsal).  A finished seed leaves ``result.json`` and is not
+def run_two_stage(ds_root: str, out_dir: str, seed: int = 0, pretrain_epochs: Optional[int] = None,
+                  epochs: Optional[int] = None, mesh: Optional[Mesh] = None, device="cuda", log_every: int = 10,
+                  regression_batch: Optional[int] = None, recipe: str = "tiny180") -> dict:
+    """Pretrain then regression of ``recipe`` (a key of ``RECIPES``) on
+    ``ds_root``'s splits at ``seed``, the checkpoints and logs under
+    ``out_dir`` (``pretrain/``, ``regression/``); returns the reference's
+    artifact fields.  The epochs default to the recipe's.  ``mesh``
+    defaults to one device, ``device``; ``regression_batch`` cuts the
+    regression's batch for a train split smaller than it (a rehearsal).  A finished seed leaves ``result.json`` and is not
     trained again; a cut one resumes from its best checkpoints, as the
     trainers do."""
     done = os.path.join(out_dir, "result.json")
@@ -98,15 +135,20 @@ def run_two_stage(ds_root: str, out_dir: str, seed: int = 0, pretrain_epochs: in
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         mesh = make_mesh(devices=[device])
+    make_pre, make_reg, default_pre, default_epochs = RECIPES[recipe]
+    pretrain_epochs = default_pre if pretrain_epochs is None else pretrain_epochs
+    epochs = default_epochs if epochs is None else epochs
     train_split = os.path.join(ds_root, "train_split.txt")
     val_split = os.path.join(ds_root, "val_split.txt")
-    pre_cfg = pretrain_config(seed, pretrain_epochs)
+    pre_cfg = make_pre(seed, pretrain_epochs)
     pre_dir = os.path.join(out_dir, "pretrain")
     t0 = time.perf_counter()
     _, pre_best = pretrain(ds_root, train_split, val_split, cfg=pre_cfg, checkpoint_dir=pre_dir,
                            log_every=log_every, mesh=mesh, viewspace_size=64)
     t_pre = time.perf_counter() - t0
-    tcfg = dataclasses.replace(regression_config(seed, epochs), batch_size=regression_batch)
+    tcfg = make_reg(seed, epochs)
+    if regression_batch is not None:
+        tcfg = dataclasses.replace(tcfg, batch_size=regression_batch)
     ckpt_dir = os.path.join(out_dir, "regression")
     t0 = time.perf_counter()
     _, best = train_regression(ds_root, train_split, val_split, cfg=tcfg, pattern=PATTERN,
@@ -114,8 +156,8 @@ def run_two_stage(ds_root: str, out_dir: str, seed: int = 0, pretrain_epochs: in
                                premodel_file=os.path.join(pre_dir, "best_pretrain_checkpoint.msgpack"))
     t_train = time.perf_counter() - t0
     art = {
-        "arch": tcfg.arch, "seed": seed, "image_size": CROP, "viewspace_size": 64, "batch_size": tcfg.batch_size,
-        "accum_steps": 1, "blr": tcfg.blr, "use_schedule": tcfg.use_schedule, "pretrain_blr": pre_cfg.blr,
+        "recipe": recipe, "arch": tcfg.arch, "seed": seed, "image_size": CROP, "viewspace_size": 64,
+        "batch_size": tcfg.batch_size, "accum_steps": 1, "pretrain_batch_size": pre_cfg.batch_size, "blr": tcfg.blr, "use_schedule": tcfg.use_schedule, "pretrain_blr": pre_cfg.blr,
         "pretrain_schedule": pre_cfg.use_schedule, "pretrain_warmup_epochs": pre_cfg.warmup_epochs,
         "n_train": len(read_split(train_split)), "n_val": len(read_split(val_split)),
         "pretrain_epochs": pretrain_epochs, "pretrain_best_l1": pre_best["l1_mean"], "pretrain_seconds": t_pre,

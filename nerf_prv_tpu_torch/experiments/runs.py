@@ -4,12 +4,15 @@ that goes to the terminal and a file, and a pool of worker processes."""
 from __future__ import annotations
 
 import json
+import math
 import multiprocessing
 import os
 import shutil
 import subprocess
 import time
 from typing import Callable, Iterable, Iterator
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 RESULTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results")
@@ -71,6 +74,17 @@ def restore_metrics(gt_path: str, fields: dict) -> None:
         path = os.path.join(gt_path, f"{n}.txt")
         if not os.path.exists(path):
             save_metrics(path, m)
+
+
+def black_psnr(ds) -> float:
+    """Mean per-frame PSNR of an all-black render against a test set (a
+    loaded ``RayDataset`` or its transforms.json): the floor a trained
+    field's PSNR is held above."""
+    from ..nerf.rays import load_dataset
+
+    ds = load_dataset(ds) if isinstance(ds, str) else ds
+    gt = ds.pixels[..., :3] * ds.pixels[..., 3:4]
+    return float(np.mean([-10.0 * math.log10(float(np.mean(f ** 2))) for f in gt]))
 
 
 def build_kernels(device) -> None:

@@ -380,7 +380,9 @@ def test_port_imports_no_jax():
         " '.experiments.time_pretrain_step', '.experiments.predictor_gate', '.experiments.mode7_compare',"
         " '.experiments.mode21_table', '.experiments.check_mode7', '.experiments.check_mode21',"
         " '.experiments.predict_budgets', '.experiments.real_object', '.experiments.check_real_object',"
-        " '.experiments.production10')} <= set(names)\n"
+        " '.experiments.production10', '.experiments.toy', '.experiments.e2e_mode21', '.experiments.launches',"
+        " '.experiments.check_e2e_mode21', '.experiments.label_spread2', '.experiments.check_pilot2',"
+        " '.experiments.warmstart')} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )
