@@ -144,7 +144,15 @@ Phases:
     kernels held to the code's prediction (each training's, each eval's and
     each screenshot set's), K8's kept frames bit-equal to ``splat_plain``,
     method 2's choices equal to the plain score's argmax on its
-    screenshots, every final field above an all-black frame by a margin.
+    screenshots, every final field above an all-black frame by a margin;
+(19) the NeRF quality studies' path (``experiments.quality_scenes`` and
+    ``quality_studies``): the splat scene (24 + 8 views at 320x180, 60,000
+    points) written on the card, one K8 launch a view set, every PNG and
+    both JSONs equal to the JAX writer's digests; one ``NerfConfig()`` field,
+    cut to 300 steps, evaluated under the default and under
+    ``render_probe_fine=24`` (``exp_thin_geometry.py``'s arm) on the same
+    field; the launches of K8 and the row kernels held to the code's
+    prediction, each evaluation above an all-black frame by a margin.
 Any failure exits non-zero.  The line before the last is the kernel table
 as JSON, the last line the device.  It imports nothing of JAX or of
 ``nerf_prv_tpu``.
@@ -382,8 +390,8 @@ SPLAT_BROKEN = {
          "    const int w = winner[p] < 0 ? -1 : 2147483646 - winner[p];\n"),
     ],
     "roundf in place of round half to even": [
-        ("rintf(add(mul(x, c.fx), c.ppx))", "roundf(add(mul(x, c.fx), c.ppx))"),
-        ("rintf(add(mul(y, c.fy), c.ppy))", "roundf(add(mul(y, c.fy), c.ppy))"),
+        ("rintf(__fmaf_rn(x, c.fx, c.ppx))", "roundf(__fmaf_rn(x, c.fx, c.ppx))"),
+        ("rintf(__fmaf_rn(y, c.fy, c.ppy))", "roundf(__fmaf_rn(y, c.fy, c.ppy))"),
     ],
     "a splat binned only into the tile of its centre": [
         ("  q.tu0 = q.u0 / kTile;\n  q.tu1 = q.u1 / kTile;\n", "  q.tu0 = q.tu1 = min(max(ui, q.u0), q.u1) / kTile;\n"),
@@ -4559,6 +4567,74 @@ def phase_e2e(dev, root: str, k_gather: dict, k_scatter: dict, k_splat: dict, ca
     log(f"phase 18 ({card}) took {time.perf_counter() - t_phase:.1f} s; launches: {launched}")
 
 
+# --- phase 19: the NeRF quality studies' scenes and fields -----------------------------------------------
+
+QUALITY_NERF = dict(n_steps=300)  # the studies' NerfConfig() field, depth cut from 2,500 steps
+QUALITY_EVALS = ({}, dict(render_probe_fine=24))  # the default and exp_thin_geometry.py's rp24 arm, one field
+# each evaluation's PSNR on the splat scene's 8 test frames over an all-black frame's after 300 steps: measured
+# 19.66 and 19.76 dB (35.39 and 35.50 against 15.74), about twice this
+QUALITY_PSNR_MARGIN_DB = 10.0
+
+
+def phase_quality(dev, root: str, k_gather: dict, k_scatter: dict, k_splat: dict, card: str) -> None:
+    """(19) The quality studies' splat scene written on the card and held
+    against the JAX writer's digests, then one of their fields
+    (``quality_studies.train_and_evaluate``) cut to 300 steps and evaluated
+    under two arms that share it; launches held to the code, each
+    evaluation's PSNR over black."""
+    from nerf_prv_tpu_torch.experiments import quality_scenes as qs
+    from nerf_prv_tpu_torch.experiments import quality_studies as qst
+
+    t_phase = time.perf_counter()
+    ws = os.path.join(root, "quality")
+    evals = {qst.eval_key(kw): qst.eval_options(kw) for kw in QUALITY_EVALS}
+    kw = qs.SCENES["splat"][1]
+    log(f"== phase 19: the quality studies' splat scene ({kw['n_train']} + {kw['n_test']} views at "
+        f"{kw['camera'].width}x{kw['camera'].height}, {kw['n_points']} points, point size {kw['point_size']}) and a "
+        f"{QUALITY_NERF['n_steps']}-step NerfConfig() field evaluated as {list(evals)}")
+    sync()
+    for w in (row_gather, row_scatter_add, splat):
+        w.launches = 0
+    t = time.perf_counter()
+    train_json, test_json = qs.write_named("splat", ws, device=dev)
+    sync()
+    t_scene = time.perf_counter() - t
+    n_sets = splat.launches
+    diff = qs.compare_digests(qs.scene_digests(ws), qs.committed_digests()["splat"])
+    log(f"19: scene written in {t_scene:.2f} s in {n_sets} K8 launches; against the JAX writer's digests of "
+        f"{diff['n_files']} files: bytes differ {diff['bytes']}, frames differ {diff['pixels']}, "
+        f"missing {diff['missing']}")
+    if diff["bytes"] or diff["pixels"] or diff["missing"]:
+        raise SystemExit("19: the splat scene is not the JAX writer's, byte for byte")
+    t = time.perf_counter()
+    out = qst.train_and_evaluate(train_json, test_json, QUALITY_NERF, evals, 0, dev)
+    sync()
+    wall = time.perf_counter() - t
+    launched = {w.__name__: w.launches for w in (row_gather, row_scatter_add, splat)}
+    log(f"19: field trained in {out['train_seconds']:.2f} s, {wall:.2f} s with the evaluations; " + "; ".join(
+        f"{k}: PSNR {m['PSNR']:.3f} SSIM {m['SSIM']:.4f} min {m['min_PSNR']:.3f} ({m['eval_seconds']:.2f} s)"
+        for k, m in out["evals"].items()))
+
+    # launches from the code: one K8 launch a view set; the training's gathers and scatter-adds; each
+    # evaluation's 2 gathers a chunk of each 8-frame group's sphere hits
+    want_g, want_s = expected_train_launches(NerfConfig(**QUALITY_NERF))
+    eval_want = [expected_narrow_eval_gathers(test_json, NerfConfig(**kw), dev) for kw in evals.values()]
+    want = {"row_gather": want_g + sum(e for e, _ in eval_want), "row_scatter_add": want_s, "splat": 2}
+    log(f"19 predicted: {want} (row_gather: {want_g} training + the evaluations' 2 a chunk of "
+        f"{render_mod._default_chunk(NerfConfig())} sphere hits {[h for _, h in eval_want]}); launched {launched}")
+    if launched != want:
+        raise SystemExit("19: the quality path's launches are not the ones the code predicts")
+    base = black_psnr(test_json)
+    psnrs = [m["PSNR"] for m in out["evals"].values()]
+    log(f"19: PSNRs {[round(p, 3) for p in psnrs]} dB against an all-black frame's {base:.3f} dB (need >= "
+        f"{QUALITY_PSNR_MARGIN_DB} dB above: the smallest margin {min(psnrs) - base:.3f})")
+    if not all(math.isfinite(p) and p >= base + QUALITY_PSNR_MARGIN_DB for p in psnrs):
+        raise SystemExit("19: an evaluation is not finite or does not beat a black frame by the margin")
+    for k, name in ((k_gather, "row_gather"), (k_scatter, "row_scatter_add"), (k_splat, "splat")):
+        k["launches_quality"] = launched[name]
+    log(f"phase 19 ({card}) took {time.perf_counter() - t_phase:.1f} s; launches: {launched}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -4625,6 +4701,7 @@ def main() -> int:
         phase_eval(dev, root, k_gather, k_scatter, k_splat, card)
         phase_real_object(dev, root, k_gather, k_scatter, k_splat, card)
         phase_e2e(dev, root, k_gather, k_scatter, k_splat, card)
+        phase_quality(dev, root, k_gather, k_scatter, k_splat, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast]}))

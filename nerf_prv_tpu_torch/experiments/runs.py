@@ -87,13 +87,13 @@ def black_psnr(ds) -> float:
     return float(np.mean([-10.0 * math.log10(float(np.mean(f ** 2))) for f in gt]))
 
 
-def build_kernels(device) -> None:
+def build_kernels(device, names=KERNELS) -> None:
     """Build the path's kernels once, before any worker starts (each
     worker would otherwise compile its own copy)."""
     if str(device).startswith("cuda"):
         from ..ops import _build
 
-        _build.build(KERNELS)
+        _build.build(names)
 
 
 def run_jobs(fn: Callable, jobs: Iterable, workers: int) -> Iterator:

@@ -51,11 +51,14 @@
 // The binning is ops/splat.py::bin_counts_plain, the formula this file
 // implements; the tests hold ops/splat.py::bin_capacity against it.
 //
-// Parity: every multiply, add and divide of the transform, the projection
-// and the distortion is written with __fmul_rn / __fadd_rn / __fdiv_rn in the
-// order the reference (and splat_plain) evaluates them, so that nvcc cannot
-// contract them into FMAs, and rounding is rintf (half to even), never
-// roundf.  Pixel i is centred at i, not i + 0.5, as in the reference.
+// Parity: every operation of the transform, the projection and the
+// distortion rounds as the reference's f32 does on the CPU, in its order:
+// XLA's dot fuses the rows the caller names (ops/splat.py::FUSED_ROWS) into
+// chains of fused multiply-adds, and its compiled elementwise code fuses
+// each multiply into the add that takes it.  So those are __fmaf_rn
+// (splat_plain's fma32), and every other multiply, add and divide is
+// __fmul_rn / __fadd_rn / __fdiv_rn, which nvcc cannot contract; rounding is
+// rintf (half to even), never roundf.  Pixel i is centred at i, not i + 0.5, as in the reference.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,10 +80,22 @@ constexpr unsigned kFull = 0xffffffffu;
 struct Cam {
   float fx, fy, ppx, ppy, k1, k2, k3, p1, p2;
   int model, width, height, ps, tiles_x, n_tiles;
+  int fused_rows;  // bit r set: row r of the transform is a fused multiply-add chain
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+
+// One row of the world-to-camera transform as the reference's f32 matmul
+// evaluates it on the CPU, then the translation added: a chain of fused
+// multiply-adds where ``fused``, else products summed in order
+// (ops/splat.py::FUSED_ROWS says which rows each of its paths fuses).
+__device__ __forceinline__ float transform_row(float px, float py, float pz, const float* __restrict__ r,
+                                               bool fused) {
+  const float a = __ldg(r + 0), b = __ldg(r + 1), d = __ldg(r + 2);
+  const float dot = fused ? __fmaf_rn(pz, d, __fmaf_rn(py, b, mul(px, a))) : add(add(mul(px, a), mul(py, b)), mul(pz, d));
+  return add(dot, __ldg(r + 3));
+}
 
 // The pixel (ui, vi) and depth z of point i in the frame whose row-major
 // (3, 4) world-to-camera matrix is m; false where the reference drops the
@@ -88,24 +103,25 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ bool project(const float* __restrict__ pts, const float* __restrict__ m,
                                         int64_t i, const Cam& c, float& z, int& ui, int& vi) {
   const float px = __ldg(pts + 3 * i), py = __ldg(pts + 3 * i + 1), pz = __ldg(pts + 3 * i + 2);
-  const float xc = add(add(add(mul(px, __ldg(m + 0)), mul(py, __ldg(m + 1))), mul(pz, __ldg(m + 2))), __ldg(m + 3));
-  const float yc = add(add(add(mul(px, __ldg(m + 4)), mul(py, __ldg(m + 5))), mul(pz, __ldg(m + 6))), __ldg(m + 7));
-  z = add(add(add(mul(px, __ldg(m + 8)), mul(py, __ldg(m + 9))), mul(pz, __ldg(m + 10))), __ldg(m + 11));
+  const float xc = transform_row(px, py, pz, m, c.fused_rows & 1);
+  const float yc = transform_row(px, py, pz, m + 4, c.fused_rows & 2);
+  z = transform_row(px, py, pz, m + 8, c.fused_rows & 4);
   const float zd = fmaxf(z, 1e-9f);
   float x = __fdiv_rn(xc, zd);
   float y = __fdiv_rn(yc, zd);
   if (c.model == 1 || c.model == 2) {
-    // camera.py::_distort_brown_conrady, operation for operation
-    const float r2 = add(mul(x, x), mul(y, y));
-    const float f = add(add(add(1.0f, mul(c.k1, r2)), mul(mul(c.k2, r2), r2)), mul(mul(mul(c.p2, r2), r2), r2));
+    // camera.py::_distort_brown_conrady, operation for operation, each
+    // multiply fused into the add that takes it (splat.py::_distort)
+    const float r2 = __fmaf_rn(x, x, mul(y, y));
+    const float f = __fmaf_rn(mul(mul(c.p2, r2), r2), r2, __fmaf_rn(mul(c.k2, r2), r2, __fmaf_rn(r2, c.k1, 1.0f)));
     const float xf = mul(x, f);
     const float yf = mul(y, f);
     const float two_k3 = mul(2.0f, c.k3), two_p1 = mul(2.0f, c.p1);
-    x = add(add(xf, mul(mul(two_k3, xf), yf)), mul(c.p1, add(r2, mul(mul(2.0f, xf), xf))));
-    y = add(add(yf, mul(mul(two_p1, xf), yf)), mul(c.k3, add(r2, mul(mul(2.0f, yf), yf))));
+    x = __fmaf_rn(__fmaf_rn(mul(2.0f, xf), xf, r2), c.p1, __fmaf_rn(mul(two_k3, xf), yf, xf));
+    y = __fmaf_rn(__fmaf_rn(mul(2.0f, yf), yf, r2), c.k3, __fmaf_rn(mul(two_p1, xf), yf, yf));
   }
-  const float uf = rintf(add(mul(x, c.fx), c.ppx));
-  const float vf = rintf(add(mul(y, c.fy), c.ppy));
+  const float uf = rintf(__fmaf_rn(x, c.fx, c.ppx));
+  const float vf = rintf(__fmaf_rn(y, c.fy, c.ppy));
   const float ps = static_cast<float>(c.ps);
   if (!(z > 1e-6f && uf >= -ps && uf < static_cast<float>(c.width) + ps && vf >= -ps &&
         vf < static_cast<float>(c.height) + ps))
@@ -372,7 +388,8 @@ extern "C" {
 int splat_tile_side() { return kTile; }
 
 // points (n, 3) f32 world, colors (n, 3) f32, w2c (frames, 3, 4) f32, all on
-// the device; intr (host) = fx, fy, ppx, ppy, k1, k2, k3, p1, p2.  Scratch:
+// the device; intr (host) = fx, fy, ppx, ppy, k1, k2, k3, p1, p2; bit r of
+// fused_rows fuses row r of the transform.  Scratch:
 // counts (frames, tiles) int32 and cursors (frames, tiles) int64, tiles =
 // ceil(height / T) * ceil(width / T) for T = splat_tile_side(); bins
 // (frames * frame_capacity, 4) int32 entries, frame_capacity >= the entries
@@ -382,7 +399,7 @@ int splat_tile_side() { return kTile; }
 // success, a cudaError_t after a refused launch, or -1 for an argument the
 // kernels do not take (the Python wrapper checks them first).
 int splat_forward(const float* points, const float* colors, const float* w2c, int64_t n, int frames,
-                  int width, int height, int point_size, int model, const float* intr, int* counts,
+                  int width, int height, int point_size, int model, int fused_rows, const float* intr, int* counts,
                   unsigned long long* cursors, void* bins, int64_t frame_capacity, void* rgba, float* alpha,
                   int out_u8, void* stream) {
   if (n < 0 || n >= (int64_t(1) << 31) || frames <= 0 || width <= 0 || height <= 0 || point_size <= 0 ||
@@ -392,7 +409,7 @@ int splat_forward(const float* points, const float* colors, const float* w2c, in
   const int64_t n_tiles = int64_t(tiles_x) * ((height + kTile - 1) / kTile);
   if (n_tiles * frames >= (int64_t(1) << 31)) return -1;
   const Cam c{intr[0], intr[1], intr[2], intr[3], intr[4], intr[5], intr[6], intr[7], intr[8],
-              model, width, height, point_size, tiles_x, static_cast<int>(n_tiles)};
+              model, width, height, point_size, tiles_x, static_cast<int>(n_tiles), fused_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * n_tiles * frames, s);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -25,6 +25,7 @@ CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -43,7 +44,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # points, colors, w2c
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, frames, width, height
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),  # point size, model, intr
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),  # point size, model, fused rows, intr
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # counts, cursors, bins, capacity
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # rgba, alpha, out_u8
             ctypes.c_void_p,  # stream
@@ -79,23 +80,72 @@ def _check_args(points, colors01, w2c, point_size) -> None:
                          f"{points.shape[0]}, {point_size}")
 
 
-def _frame_projection(points, m, camera, point_size):
+def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` for an f32 tensor ``a`` (``b`` and ``c`` f32 tensors or
+    f32 values), rounded once to f32 (a fused
+    multiply-add, which PyTorch does not offer): the product is exact in
+    float64, the sum's float64 rounding error is recovered exactly (TwoSum),
+    and where the float64 sum fell on a midpoint of two f32 values the
+    result is the neighbour on the error's side."""
+    s = a.double() * (b.double() if torch.is_tensor(b) else float(b))  # exact: 48 significant bits
+    c64 = c.double() if torch.is_tensor(c) else float(c)
+    r = s + c64
+    bb = r - s
+    err = (s - (r - bb)) + (c64 - bb)
+    out = r.float()
+    near = out.double()
+    other = torch.nextafter(out, torch.where(r > near, torch.full_like(out, math.inf), torch.full_like(out, -math.inf)))
+    mid = (near != r) & ((r - near).abs() == (other.double() - r).abs())
+    return torch.where(mid & (err != 0) & ((other.double() > near) == (err > 0)), other, out)
+
+
+# The reference's f32 on the CPU: its compiled elementwise code fuses each multiply into the add that takes it,
+# and XLA's dot of the points with the (3, 3) rotation sums some rows of the transform as a chain of fused
+# multiply-adds and others as plain products in order.  The transform, the distortion and the pixel below are
+# written so, operation for operation (the kernel with __fmaf_rn), so that every rounding is the reference's.
+# Which rows the dot fuses (bit r: row r) depends on how it ran, measured on the CPU at 3,000 to 200,003 points:
+FUSED_ROWS = {
+    "views": 0b111,  # render_pointcloud_views: the dot compiled with the splat (jit)
+    "frame": 0b100,  # render_pointcloud: the dot dispatched on its own, before the compiled splat
+}
+
+
+def _transform_row(p0, p1, p2, row, fused: bool):
+    """One row of the world-to-camera transform, then the translation added."""
+    if fused:
+        dot = fma32(p2, row[2], fma32(p1, row[1], p0 * row[0]))
+    else:
+        dot = (p0 * row[0] + p1 * row[1]) + p2 * row[2]
+    return dot + row[3]
+
+
+def _distort(x, y, coeffs):
+    """``core/camera.py::_distort_brown_conrady`` with the reference's fused
+    multiply-adds."""
+    k1, k2, k3, p1, p2 = coeffs
+    r2 = fma32(x, x, y * y)
+    f = fma32((p2 * r2) * r2, r2, fma32(k2 * r2, r2, fma32(r2, k1, 1.0)))
+    xf, yf = x * f, y * f
+    dx = fma32(fma32(2.0 * xf, xf, r2), p1, fma32((2.0 * k3) * xf, yf, xf))
+    dy = fma32(fma32(2.0 * yf, yf, r2), k3, fma32((2.0 * p1) * xf, yf, yf))
+    return dx, dy
+
+
+def _frame_projection(points, m, camera, point_size, fused_rows: int = FUSED_ROWS["views"]):
     """Pixel (float, rounded), depth and validity of every point in the frame
     of the (3, 4) world-to-camera matrix ``m``, in the kernel's order of f32
     operations (never a matmul, whose summation order is its own)."""
-    from ..core.camera import DIST_INVERSE_BROWN_CONRADY, DIST_MODIFIED_BROWN_CONRADY, _distort_brown_conrady
+    from ..core.camera import DIST_INVERSE_BROWN_CONRADY, DIST_MODIFIED_BROWN_CONRADY
 
     p0, p1, p2 = points[:, 0], points[:, 1], points[:, 2]
-    xc = ((p0 * m[0, 0] + p1 * m[0, 1]) + p2 * m[0, 2]) + m[0, 3]
-    yc = ((p0 * m[1, 0] + p1 * m[1, 1]) + p2 * m[1, 2]) + m[1, 3]
-    z = ((p0 * m[2, 0] + p1 * m[2, 1]) + p2 * m[2, 2]) + m[2, 3]
+    xc, yc, z = (_transform_row(p0, p1, p2, m[r], bool(fused_rows >> r & 1)) for r in range(3))
     zd = torch.clamp(z, min=1e-9)
     x, y = xc / zd, yc / zd
     fx, fy, ppx, ppy, *coeffs = _intrinsics(camera)
     if int(camera.model) in (DIST_MODIFIED_BROWN_CONRADY, DIST_INVERSE_BROWN_CONRADY):
-        x, y = _distort_brown_conrady(x, y, coeffs)
-    uf = torch.round(x * fx + ppx)
-    vf = torch.round(y * fy + ppy)
+        x, y = _distort(x, y, coeffs)
+    uf = torch.round(fma32(x, fx, ppx))
+    vf = torch.round(fma32(y, fy, ppy))
     ps = float(point_size)
     valid = (z > 1e-6) & (uf >= -ps) & (uf < camera.width + ps) & (vf >= -ps) & (vf < camera.height + ps)
     return uf, vf, z, valid
@@ -114,7 +164,8 @@ def bin_capacity(n: int, point_size: int, tile: int) -> int:
     return int(n) * tiles_per_axis(point_size, tile) ** 2
 
 
-def bin_counts_plain(points, w2c, camera, point_size: int, tile: int) -> torch.Tensor:
+def bin_counts_plain(points, w2c, camera, point_size: int, tile: int,
+                     fused_rows: int = FUSED_ROWS["views"]) -> torch.Tensor:
     """The kernel's binning in PyTorch: (F, tiles_y, tiles_x) int64 entries
     of every (frame, tile) bin, a point counted once in every tile that the
     in-frame pixels of its square touch."""
@@ -123,7 +174,7 @@ def bin_counts_plain(points, w2c, camera, point_size: int, tile: int) -> torch.T
     half = ps // 2
     out = []
     for m in w2c:
-        uf, vf, _, valid = _frame_projection(points, m, camera, ps)
+        uf, vf, _, valid = _frame_projection(points, m, camera, ps, fused_rows)
         ui = torch.where(valid, uf, torch.zeros_like(uf)).to(torch.int64)
         vi = torch.where(valid, vf, torch.zeros_like(vf)).to(torch.int64)
         u0, u1 = (ui - half).clamp(min=0), (ui - half + ps - 1).clamp(max=width - 1)
@@ -140,7 +191,8 @@ def bin_counts_plain(points, w2c, camera, point_size: int, tile: int) -> torch.T
     return torch.stack(out)
 
 
-def splat_plain(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = True):
+def splat_plain(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = True,
+                fused_rows: int = FUSED_ROWS["views"]):
     """The same function in PyTorch, frame by frame: ``scatter_reduce_``
     "amin" on the depth, then "amax" on the winners' point indices, then a
     gather.  Returns u8 RGBA (F, H, W, 4), or f32 (rgb (F, H, W, 3), alpha
@@ -158,7 +210,7 @@ def splat_plain(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = 
     white_last = torch.cat([colors01, torch.ones((1, 3), dtype=torch.float32, device=dev)])
     rgbs, alphas = [], []
     for m in w2c:
-        uf, vf, z, valid = _frame_projection(points, m, camera, ps)
+        uf, vf, z, valid = _frame_projection(points, m, camera, ps, fused_rows)
         # invalid points may sit anywhere: pin them inside int range first
         ui = torch.where(valid, uf, torch.zeros_like(uf)).to(torch.int64)
         vi = torch.where(valid, vf, torch.zeros_like(vf)).to(torch.int64)
@@ -184,14 +236,16 @@ def splat_plain(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = 
     return torch.round(torch.clamp(rgba, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
-def splat(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = True):
+def splat(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = True,
+          fused_rows: int = FUSED_ROWS["views"]):
     """Splat ``points`` (N, 3) f32 world coordinates with ``colors01`` (N, 3)
     f32 into every frame of ``w2c`` (F, 3, 4) f32 world-to-camera matrices
-    at ``camera``'s size and intrinsics.  Returns u8 RGBA (F, H, W, 4), or
-    with ``rgba_u8=False`` f32 (rgb (F, H, W, 3), alpha (F, H, W))."""
+    at ``camera``'s size and intrinsics, the transform's rows rounded as
+    ``fused_rows`` says (:data:`FUSED_ROWS`).  Returns u8 RGBA (F, H, W, 4),
+    or with ``rgba_u8=False`` f32 (rgb (F, H, W, 3), alpha (F, H, W))."""
     _check_args(points, colors01, w2c, point_size)
     if points.device.type == "cpu":
-        return splat_plain(points, colors01, w2c, camera, point_size, rgba_u8)
+        return splat_plain(points, colors01, w2c, camera, point_size, rgba_u8, fused_rows)
     if points.device.type != "cuda":
         raise ValueError(f"splat runs on cpu or cuda tensors; got {points.device}")
     dev = points.device
@@ -214,7 +268,7 @@ def splat(points, colors01, w2c, camera, point_size: int, rgba_u8: bool = True):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.splat_forward(
             points.data_ptr(), colors01.data_ptr(), w2c.data_ptr(), points.shape[0], frames,
-            width, height, int(point_size), int(camera.model), intr,
+            width, height, int(point_size), int(camera.model), int(fused_rows), intr,
             counts.data_ptr(), cursors.data_ptr(), bins.data_ptr(), capacity, rgba.data_ptr(),
             alpha.data_ptr() if alpha is not None else None, int(rgba_u8), stream,
         )

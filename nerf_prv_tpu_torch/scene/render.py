@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.splat import splat
+from ..ops.splat import FUSED_ROWS, splat
 
 
 def _colors01(colors, n: int, device) -> torch.Tensor:
@@ -68,14 +68,18 @@ def render_pointcloud_views(
     intr,
     point_size: Optional[int] = None,
     device="cuda",
+    rounding: str = "views",
 ) -> torch.Tensor:
     """All frames of a view set in one kernel launch -> uint8 RGBA
-    (F, H, W, 4) on ``device``."""
+    (F, H, W, 4) on ``device``.  ``rounding="frame"`` rounds the transform
+    as the reference's ``render_pointcloud`` does (``ops/splat.py::FUSED_ROWS``),
+    so that the frames' bytes equal :func:`render_pointcloud` +
+    :func:`rgba_from_render`'s."""
     device = torch.device(device)
     pts = _points(points_world, device)
     col = _colors01(colors, len(pts), device)
     w2c = _world_to_camera(cam_to_world_batch).to(device)
-    return splat(pts, col, w2c, intr, int(point_size) if point_size else 5)
+    return splat(pts, col, w2c, intr, int(point_size) if point_size else 5, fused_rows=FUSED_ROWS[rounding])
 
 
 def render_pointcloud(
@@ -96,7 +100,8 @@ def render_pointcloud(
     pts = _points(points_world, device)
     col = _colors01(colors, len(pts), device)
     w2c = _world_to_camera(cam_to_world).to(device)
-    rgb, alpha = splat(pts, col, w2c, intr, int(point_size) if point_size else 5, rgba_u8=False)
+    rgb, alpha = splat(pts, col, w2c, intr, int(point_size) if point_size else 5, rgba_u8=False,
+                       fused_rows=FUSED_ROWS["frame"])
     return rgb[0], alpha[0]
 
 

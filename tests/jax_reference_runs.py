@@ -29,6 +29,15 @@ today's JAX package and the run that wrote the artifacts (a TPU).
     JAX_PLATFORMS=cpu python tests/jax_reference_runs.py real-object --root WS --views 25 --steps 2500 \\
         --seeds 0 1 --package jax
     python tests/jax_reference_runs.py merge-real-object --root WS --views 25 --steps 2500
+    # the quality studies' scenes (splat, thin at seeds 0 and 1, bench.py's) by the JAX
+    # writers on the CPU: the generate_hemisphere views they draw, shipped as .npy under
+    # nerf_prv_tpu_torch/experiments/viewspace/quality/, and the sha256 of every PNG and JSON
+    # into quality_scenes_cpu.json:
+    JAX_PLATFORMS=cpu python tests/jax_reference_runs.py quality-scenes --root WS
+    # NerfConfig() at seed 0 on one quality scene by one package on the CPU (2,500 steps),
+    # then every such field into quality_cpu.json beside the committed six-seed record:
+    JAX_PLATFORMS=cpu python tests/jax_reference_runs.py quality --root WS --scene splat --package jax
+    python tests/jax_reference_runs.py merge-quality --root WS
 
 Each writes ``<root>/<what>.json``; a full label protocol takes about 75
 minutes an object on three CPU threads, a 1,200-step field 5-7 minutes.
@@ -46,6 +55,8 @@ RESULTS = os.path.join(REPO, "nerf_prv_tpu_torch", "experiments", "results")
 LABELS_CHECK = os.path.join(RESULTS, "labels_check.json")
 FIELDS_CPU = os.path.join(RESULTS, "fields_cpu.json")
 TRAINERS_CPU = os.path.join(RESULTS, "trainers_cpu.json")
+QUALITY_SCENES_CPU = os.path.join(RESULTS, "quality_scenes_cpu.json")
+QUALITY_CPU = os.path.join(RESULTS, "quality_cpu.json")
 CUT = dict(arch="convnextv2_atto", image_size=32, batch_size=64, pretrain_epochs=2, epochs=150)
 
 
@@ -367,10 +378,173 @@ def merge_trainers(root: str) -> None:
         f.write("\n")
 
 
+def jax_write_thin_scene(out_dir: str, camera, seed: int = 0) -> tuple:
+    """``experiments/exp_hashgrid_r3.py:52-74``'s thin-scene writer on the
+    JAX package (``exp_thin_geometry.py:67-87`` and ``exp_train16.py:58-75``
+    write the same), for ``make_thin_object(seed=seed)``: seed 1 is
+    ``exp_share_march.py:94-114``'s object.  Returns (train, test) JSONs."""
+    sys.path.insert(0, os.path.join(REPO, "experiments"))
+    import numpy as np
+    from PIL import Image
+
+    from exp_thin_geometry import make_thin_object
+    from nerf_prv_tpu.core.pose import camera_to_world
+    from nerf_prv_tpu.core.transforms import add_frame, make_root, write_transforms
+    from nerf_prv_tpu.scene import render_pointcloud, rgba_from_render
+    from nerf_prv_tpu.viewspace import generate_hemisphere
+
+    pts, cols = make_thin_object(seed=seed)
+    center = pts.mean(axis=0)
+    predicted_size = float(np.linalg.norm(pts - center, axis=1).max() * 17 / 16)
+    views_train = generate_hemisphere(24, seed=1, restarts=2, steps=200)
+    views_test = generate_hemisphere(11, seed=2, restarts=2, steps=200)[3:]
+    os.makedirs(out_dir, exist_ok=True)
+    for name, views in (("train", views_train), ("test", views_test)):
+        root = make_root(camera, 1, predicted_size, center)
+        sub = os.path.join(out_dir, name)
+        os.makedirs(sub, exist_ok=True)
+        for i, v in enumerate(views):
+            pos = v / np.linalg.norm(v) * 0.3 + center
+            c2w = camera_to_world(pos[None], center)[0]
+            rgb, alpha = render_pointcloud(pts, cols, c2w, camera, point_size=2)
+            rgba = rgba_from_render(rgb, alpha)
+            Image.fromarray(rgba, "RGBA").save(os.path.join(sub, f"rgbaClip_{i}.png"))
+            add_frame(root, os.path.join(name, f"rgbaClip_{i}.png"), c2w)
+        write_transforms(os.path.join(out_dir, f"{name}.json"), root)
+    return os.path.join(out_dir, "train.json"), os.path.join(out_dir, "test.json")
+
+
+def jax_write_quality_scene(name: str, out_dir: str) -> tuple:
+    """The JAX writer of ``quality_scenes.SCENES[name]``: ``tests/synthetic.py``'s
+    ``write_scene`` at the studies' (``exp_quality.py:31-35``) or ``bench.py:104-107``'s
+    settings, or the thin writer.  Returns (train, test) JSONs."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from nerf_prv_tpu.core.config import CameraConfig
+    from synthetic import write_scene
+
+    cam = CameraConfig(width=320, height=180, fx=228.9, fy=228.3, ppx=161.8, ppy=93.1, model=0)
+    if name == "splat":
+        return write_scene(out_dir, n_train=24, n_test=8, camera=cam, point_size=2, n_points=60000)[:2]
+    if name == "bench":
+        return write_scene(out_dir, n_train=16, n_test=8, camera=CameraConfig(), point_size=3,
+                           n_points=120000)[:2]
+    return jax_write_thin_scene(out_dir, cam, seed={"thin": 0, "thin_s1": 1}[name])
+
+
+def run_quality_scenes(root: str) -> None:
+    """The ``generate_hemisphere`` calls of the quality writers, saved as
+    shipped ``.npy`` files, then every quality scene by the JAX writer under
+    ``<root>/jax/<name>`` and the sha256 of its files into
+    ``quality_scenes_cpu.json``."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from nerf_prv_tpu.viewspace import generate_hemisphere
+    from nerf_prv_tpu_torch.experiments import quality_scenes as qs
+
+    os.makedirs(qs.VIEWS_DIR, exist_ok=True)
+    for n, seed in qs.HEMISPHERES:
+        np.save(qs.hemisphere_path(n, seed), generate_hemisphere(n, seed=seed, restarts=2, steps=200))
+    scenes = {}
+    for name in qs.SCENES:
+        d = os.path.join(root, "jax", name)
+        jax_write_quality_scene(name, d)
+        scenes[name] = qs.scene_digests(d)
+        print(name, len(scenes[name]["files"]), "files", flush=True)
+    out = dict(what="the quality scenes by the JAX writers on the CPU (tests/jax_reference_runs.py "
+                    "quality-scenes): sha256 of each file's bytes and of each PNG's decoded RGBA",
+               platform=_cpu(), scenes=scenes)
+    with open(QUALITY_SCENES_CPU, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+
+
+def run_quality(root: str, scene: str, seeds, package: str) -> None:
+    """``NerfConfig()`` (2,500 steps) on the quality scene ``scene`` by
+    ``package`` on the CPU, each seed scored on the scene's test set, into
+    ``<root>/quality_<package>_<scene>.json``.  Each package trains on its own
+    writer's scene (the two are equal, tests/test_torch_quality_scenes.py)."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 4))
+    d = os.path.join(root, package, scene)
+    if package == "jax":
+        from nerf_prv_tpu.nerf import NerfConfig
+        from nerf_prv_tpu.nerf.api import run
+
+        from nerf_prv_tpu_torch.experiments.quality_scenes import complete
+
+        if not complete(d):
+            jax_write_quality_scene(scene, d)
+    else:
+        from nerf_prv_tpu_torch.experiments.quality_scenes import write_named
+        from nerf_prv_tpu_torch.nerf.api import run
+        from nerf_prv_tpu_torch.nerf.model import NerfConfig
+
+        write_named(scene, d, device="cpu")
+    path = os.path.join(root, f"quality_{package}_{scene}.json")
+    out = json.load(open(path)) if os.path.exists(path) else {}
+    train, test = (os.path.join(d, f"{s}.json") for s in ("train", "test"))
+    for seed in seeds:
+        t0 = time.perf_counter()
+        kw = {} if package == "jax" else dict(device="cpu")
+        m = run(train, test_transforms=test, cfg=NerfConfig(), seed=seed, **kw)
+        out[str(seed)] = dict(PSNR=float(m["PSNR"]), SSIM=float(m["SSIM"]), min_PSNR=float(m["min_PSNR"]),
+                              wall_s=time.perf_counter() - t0, platform=_cpu())
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+        print(package, scene, seed, out[str(seed)], flush=True)
+
+
+def merge_quality(root: str) -> None:
+    """``<root>/quality_<package>_<scene>.json`` into ``quality_cpu.json``
+    beside the committed record of ``NerfConfig()`` (``fused_rng_seeds.json``,
+    arm "split", the same values as ``adam_lowp.json``'s "f32") and the port's
+    card runs (``quality_check.json``'s anchor) at the same seeds."""
+    import glob
+    import re
+
+    with open(os.path.join(REPO, "experiments", "artifacts", "fused_rng_seeds.json")) as f:
+        committed = json.load(f)["psnr"]
+    card = {}
+    if os.path.exists(os.path.join(RESULTS, "quality_check.json")):
+        with open(os.path.join(RESULTS, "quality_check.json")) as f:
+            anchor = json.load(f)["verdicts"].get("anchor", {})
+        card = {sc: {str(s): p for s, p in enumerate(a["psnr"])} for sc, a in anchor.items()}
+    scenes = {}
+    for path in sorted(glob.glob(os.path.join(root, "quality_*_*.json"))):
+        package, scene = re.fullmatch(r"quality_(jax|port)_(\w+)\.json", os.path.basename(path)).groups()
+        with open(path) as f:
+            scenes.setdefault(scene, {})[f"{package}_cpu"] = json.load(f)
+    for scene, e in scenes.items():
+        seeds = sorted(set(e.get("jax_cpu", {})) | set(e.get("port_cpu", {})))
+        e["committed"] = {s: committed[f"split/{scene}/s{s}"] for s in seeds}
+        e["port_card"] = {s: card[scene][s] for s in seeds if s in card.get(scene, {})}
+        for package in ("jax_cpu", "port_cpu"):
+            if package in e:
+                e[f"{package}_mean_minus_committed"] = sum(
+                    r["PSNR"] - e["committed"][s] for s, r in e[package].items()) / len(e[package])
+        for package in ("jax_cpu", "port_cpu"):
+            if package in e:
+                e[f"{package}_minus_committed"] = {s: r["PSNR"] - e["committed"][s] for s, r in e[package].items()}
+        if "jax_cpu" in e and "port_cpu" in e:
+            e["port_cpu_minus_jax_cpu"] = {s: e["port_cpu"][s]["PSNR"] - e["jax_cpu"][s]["PSNR"]
+                                           for s in e["port_cpu"] if s in e["jax_cpu"]}
+    out = dict(what="NerfConfig() (2,500 steps) on the quality scenes by each package on the CPU "
+                    "(tests/jax_reference_runs.py quality), beside the committed TPU record "
+                    "(fused_rng_seeds.json, arm split) and the port's card runs (quality_check.json)",
+               platform=_cpu(), scenes=scenes)
+    with open(QUALITY_CPU, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("labels", "merge-labels", "field", "merge-fields", "trainers", "merge-trainers",
-                                     "real-object", "merge-real-object"))
+                                     "real-object", "merge-real-object", "quality-scenes", "quality",
+                                     "merge-quality"))
     ap.add_argument("names", nargs="*")
     ap.add_argument("--root", required=True)
     ap.add_argument("--obj", default="uni11")
@@ -379,6 +553,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="*", default=[0], help="none: render the coverage sets only")
     ap.add_argument("--package", choices=("jax", "port"), default="jax")
     ap.add_argument("--workers", type=int, default=4, help="render processes for the corpus's dataset")
+    ap.add_argument("--scene", default="splat", help="the quality scene (quality)")
     args = ap.parse_args(argv)
     if args.what == "labels":
         run_labels(args.root, args.names)
@@ -394,6 +569,12 @@ def main(argv=None) -> int:
         run_real_object_field(args.root, args.views, args.steps, args.seeds, args.package)
     elif args.what == "merge-real-object":
         merge_real_object(args.root, args.views, args.steps)
+    elif args.what == "quality-scenes":
+        run_quality_scenes(args.root)
+    elif args.what == "quality":
+        run_quality(args.root, args.scene, args.seeds, args.package)
+    elif args.what == "merge-quality":
+        merge_quality(args.root)
     else:
         run_field(args.root, args.obj, args.views, args.steps, args.seeds, args.package)
     return 0

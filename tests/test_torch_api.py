@@ -382,7 +382,8 @@ def test_port_imports_no_jax():
         " '.experiments.predict_budgets', '.experiments.real_object', '.experiments.check_real_object',"
         " '.experiments.production10', '.experiments.toy', '.experiments.e2e_mode21', '.experiments.launches',"
         " '.experiments.check_e2e_mode21', '.experiments.label_spread2', '.experiments.check_pilot2',"
-        " '.experiments.warmstart')} <= set(names)\n"
+        " '.experiments.warmstart', '.experiments.quality_scenes', '.experiments.quality_studies',"
+        " '.experiments.check_quality')} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )

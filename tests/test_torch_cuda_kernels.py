@@ -531,8 +531,8 @@ SPLAT_BROKEN = {
          "    const int w = winner[p] < 0 ? -1 : 2147483646 - winner[p];\n"),
     ],
     "roundf in place of round half to even": [
-        ("rintf(add(mul(x, c.fx), c.ppx))", "roundf(add(mul(x, c.fx), c.ppx))"),
-        ("rintf(add(mul(y, c.fy), c.ppy))", "roundf(add(mul(y, c.fy), c.ppy))"),
+        ("rintf(__fmaf_rn(x, c.fx, c.ppx))", "roundf(__fmaf_rn(x, c.fx, c.ppx))"),
+        ("rintf(__fmaf_rn(y, c.fy, c.ppy))", "roundf(__fmaf_rn(y, c.fy, c.ppy))"),
     ],
     "a splat binned only into the tile of its centre": [
         ("  q.tu0 = q.u0 / kTile;\n  q.tu1 = q.u1 / kTile;\n", "  q.tu0 = q.tu1 = min(max(ui, q.u0), q.u1) / kTile;\n"),
@@ -624,6 +624,61 @@ def test_splat_kernel_equals_plain_on_binning_edge_cases(cuda_device, case, u8):
         alpha = got[1]
     covered = float(alpha.mean())
     assert covered == 0.0 if case == "empty" else 0.0 < covered <= 1.0
+
+
+def _quality_inputs(name, dev):
+    """(points, colours01, w2c of the train views, camera, point size) of a
+    quality scene (``experiments/quality_scenes.py``): the splat scene (320x180,
+    60,000 points, 24 views, point size 2) or the bench scene (1280x720 model
+    2, 120,000 points, 16 views, point size 3)."""
+    from nerf_prv_tpu_torch.experiments import quality_scenes as qs
+    from nerf_prv_tpu_torch.experiments.toy import make_object
+    from nerf_prv_tpu_torch.scene.render import _colors01, _world_to_camera
+
+    kw = qs.SCENES[name][1]
+    pts, cols = make_object(kw["n_points"], seed=0)
+    c2ws = qs.poses(qs.hemisphere(kw["n_train"], 1), pts.mean(axis=0), 0.3)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)  # noqa: E731
+    return as_t(pts), _colors01(cols, len(pts), dev), _world_to_camera(c2ws).to(dev), kw["camera"], kw["point_size"]
+
+
+@pytest.mark.parametrize("rounding", ["frame", "views"])
+def test_splat_kernel_equals_plain_on_the_quality_scene(cuda_device, rounding):
+    """Bit-equal to ``splat_plain`` at the quality studies' shape: the splat
+    scene's 24 train views (320x180, 60,000 points, point size 2) in one
+    launch, at both roundings of the transform."""
+    from nerf_prv_tpu_torch.ops.splat import FUSED_ROWS, splat, splat_plain
+
+    pts, cols, w2c, cam, ps = _quality_inputs("splat", cuda_device)
+    before = splat.launches
+    got = splat(pts, cols, w2c, cam, ps, fused_rows=FUSED_ROWS[rounding])
+    torch.cuda.synchronize()
+    assert splat.launches == before + 1 and tuple(got.shape) == (24, 180, 320, 4)
+    assert torch.equal(got, splat_plain(pts, cols, w2c, cam, ps, fused_rows=FUSED_ROWS[rounding]))
+    assert 0.02 < float((got[..., 3] > 0).float().mean()) < 0.98
+
+
+def test_splat_rounds_the_transform_rows_it_is_told_to(cuda_device, monkeypatch):
+    """On the bench scene's train views 13-14 the two roundings of the
+    transform (``FUSED_ROWS``) give other frames; the kernel equals the plain
+    version at each, and a kernel that fuses every row whatever it is told
+    differs from the per-frame rounding."""
+    from nerf_prv_tpu_torch.ops import _build
+    from nerf_prv_tpu_torch.ops import splat as splat_mod
+
+    pts, cols, w2c, cam, ps = _quality_inputs("bench", cuda_device)
+    w2c = w2c[13:15].contiguous()
+    want = {r: splat_mod.splat_plain(pts, cols, w2c, cam, ps, fused_rows=m) for r, m in splat_mod.FUSED_ROWS.items()}
+    assert not torch.equal(want["frame"], want["views"])
+    for r, m in splat_mod.FUSED_ROWS.items():
+        assert torch.equal(splat_mod.splat(pts, cols, w2c, cam, ps, fused_rows=m), want[r])
+    lib = splat_mod.bind(_build.edited("splat", [
+        ("transform_row(px, py, pz, m, c.fused_rows & 1)", "transform_row(px, py, pz, m, true)"),
+        ("transform_row(px, py, pz, m + 4, c.fused_rows & 2)", "transform_row(px, py, pz, m + 4, true)"),
+    ]))
+    monkeypatch.setattr(splat_mod, "_lib", lambda: lib)
+    assert not torch.equal(splat_mod.splat(pts, cols, w2c, cam, ps, fused_rows=splat_mod.FUSED_ROWS["frame"]),
+                           want["frame"])
 
 
 def _cast_inputs(n_rays, seed, dev, miss_share=0.3):
