@@ -152,7 +152,15 @@ Phases:
     cut to 300 steps, evaluated under the default and under
     ``render_probe_fine=24`` (``exp_thin_geometry.py``'s arm) on the same
     field; the launches of K8 and the row kernels held to the code's
-    prediction, each evaluation above an all-black frame by a margin.
+    prediction, each evaluation above an all-black frame by a margin;
+(20) the hd arm (``experiments.corpus_dataset.render_hd_sets``,
+    ``mode7_compare.HDPredictor``, the tiny@720 recipe): one family
+    object's hd 5-view set at 1280x720 (its size test and one K8 launch,
+    held to the code; kept frames bit-equal to ``splat_plain``), K8 timed at
+    the hd sets' 16- and 5-frame shapes; a fresh tiny@720 predictor behind
+    ``HDPredictor`` sent to the hd set, its budget on the card within 1e-4
+    views of the CPU's; one tiny@720 regression application of two
+    one-object micro-steps, timed.
 Any failure exits non-zero.  The line before the last is the kernel table
 as JSON, the last line the device.  It imports nothing of JAX or of
 ``nerf_prv_tpu``.
@@ -250,7 +258,7 @@ from nerf_prv_tpu_torch.parallel import mesh as parallel_mesh  # noqa: E402
 from nerf_prv_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
 from nerf_prv_tpu_torch.parallel.mesh import make_mesh, shard_rows  # noqa: E402
 from nerf_prv_tpu_torch.prvnet import train as prv_train_mod  # noqa: E402
-from nerf_prv_tpu_torch.prvnet.data import PVBDataset, PVBPretrainDataset, read_split  # noqa: E402
+from nerf_prv_tpu_torch.prvnet.data import PVBDataset, PVBPretrainDataset, load_rgb, read_split  # noqa: E402
 from nerf_prv_tpu_torch.prvnet.infer import BudgetPredictor  # noqa: E402
 from nerf_prv_tpu_torch.prvnet.model import IMG_PATTERN, make_pvbnet, make_pvbpretrain  # noqa: E402
 from nerf_prv_tpu_torch.prvnet.train import (  # noqa: E402
@@ -2366,6 +2374,34 @@ def outputs_err(label: str, got, want) -> float:
     return err
 
 
+def splat_row(pts, col, m, u8: bool, ps: int, card: str) -> dict:
+    """K8 on ``m``'s frames at ``CAMERA``: device and call time, the plain
+    version's time and output (the kernel's must be bit-equal to it), the
+    bound, and ``scatter_reduce_`` "amin" on the same splats."""
+    frames = m.shape[0]
+    label = f"F={frames} {'u8 RGBA' if u8 else 'f32 rgb + alpha'} {CAMERA.width}x{CAMERA.height}, N={len(pts)}, ps={ps}"
+    flat, depth = splat_masks(pts, m, ps)
+    zero = torch.full((frames * CAMERA.width * CAMERA.height,), float("inf"), device=pts.device)
+    row = dict(shape=label)
+    iters = 50 if frames == 1 else 5
+    row["ms"] = device_ms(lambda: splat(pts, col, m, CAMERA, ps, rgba_u8=u8), iters=iters)
+    row["call_ms"] = min(time_ms(lambda: splat(pts, col, m, CAMERA, ps, rgba_u8=u8), iters=iters) for _ in range(2))
+    # the plain version takes ~0.5 s a frame: one call, no warmup
+    row["plain_ms"], want = timed_output(lambda: splat_plain(pts, col, m, CAMERA, ps, rgba_u8=u8),
+                                         warmup=0 if frames > 1 else 1)
+    row["max_abs_err"] = outputs_err(f"K8 {label}", splat(pts, col, m, CAMERA, ps, rgba_u8=u8), want)
+    del want
+    row["library_ms"] = device_ms(lambda: zero.clone().scatter_reduce_(0, flat, depth, "amin"), iters=iters)
+    row["bound_ms"], row["bound_by"] = splat_bound_ms(len(pts), frames, u8, ps, flat.numel())
+    log(f"K8 {label}: device {row['ms']:.4f} ms, call {row['call_ms']:.4f} ms, splat_plain {row['plain_ms']:.4f} ms, "
+        f"scatter_reduce_ amin on the {flat.numel()} materialised splats (z-buffer only) {row['library_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = {row['bound_ms'] / row['ms']:.3f} of the time; "
+        f"{flat.numel() / frames:.0f} in-frame splats a frame, each a depth test and a winner test; "
+        f"bit-equal to the timed splat_plain call ({card})")
+    log(f"K8 {label}: {bin_stats(pts, m, ps, splat_mod._lib().splat_tile_side())}")
+    return row
+
+
 def time_kernels_coverage(scene, dev, c2ws, card) -> tuple:
     """K8 at the size test's shape (one frame, f32) and the coverage set's
     (50 frames, u8), and K9 on one full view, each beside its plain version,
@@ -2374,32 +2410,8 @@ def time_kernels_coverage(scene, dev, c2ws, card) -> tuple:
     col = _colors01(scene.colors, len(pts), dev)
     w2c = _world_to_camera(c2ws).to(dev)
     ps = 5
-    rows = []
-    for frames, u8 in ((1, False), (COVERAGE_VIEWS, True)):
-        m = w2c[:frames].contiguous()
-        label = f"F={frames} {'u8 RGBA' if u8 else 'f32 rgb + alpha'} {CAMERA.width}x{CAMERA.height}, N={len(pts)}, ps={ps}"
-        flat, depth = splat_masks(pts, m, ps)
-        n_pix = frames * CAMERA.width * CAMERA.height
-        zero = torch.full((n_pix,), float("inf"), device=dev)
-        row = dict(shape=label)
-        iters = 50 if frames == 1 else 5
-        row["ms"] = device_ms(lambda: splat(pts, col, m, CAMERA, ps, rgba_u8=u8), iters=iters)
-        row["call_ms"] = min(time_ms(lambda: splat(pts, col, m, CAMERA, ps, rgba_u8=u8), iters=iters) for _ in range(2))
-        # the plain version takes ~0.5 s a frame: one call, no warmup
-        row["plain_ms"], want = timed_output(lambda: splat_plain(pts, col, m, CAMERA, ps, rgba_u8=u8),
-                                             warmup=0 if frames > 1 else 1)
-        row["max_abs_err"] = outputs_err(f"K8 {label}", splat(pts, col, m, CAMERA, ps, rgba_u8=u8), want)
-        del want
-        row["library_ms"] = device_ms(lambda: zero.clone().scatter_reduce_(0, flat, depth, "amin"), iters=iters)
-        row["bound_ms"], row["bound_by"] = splat_bound_ms(len(pts), frames, u8, ps, flat.numel())
-        log(f"K8 {label}: device {row['ms']:.4f} ms, call {row['call_ms']:.4f} ms, splat_plain {row['plain_ms']:.4f} ms, "
-            f"scatter_reduce_ amin on the {flat.numel()} materialised splats (z-buffer only) {row['library_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = {row['bound_ms'] / row['ms']:.3f} of the time; "
-            f"{flat.numel() / frames:.0f} in-frame splats a frame, each a depth test and a winner test; "
-            f"bit-equal to the timed splat_plain call ({card})")
-        log(f"K8 {label}: {bin_stats(pts, m, ps, splat_mod._lib().splat_tile_side())}")
-        rows.append(row)
-        del flat, depth, zero
+    rows = [splat_row(pts, col, w2c[:frames].contiguous(), u8, ps, card)
+            for frames, u8 in ((1, False), (COVERAGE_VIEWS, True))]
     for frames in (COVERAGE_VIEWS, 100):
         log(f"K8 memory, N={len(pts)}, ps={ps}: {splat_memory(pts, col, w2c, frames, ps)} ({card})")
     gs = scene.gt_scene
@@ -4635,6 +4647,119 @@ def phase_quality(dev, root: str, k_gather: dict, k_scatter: dict, k_splat: dict
     log(f"phase 19 ({card}) took {time.perf_counter() - t_phase:.1f} s; launches: {launched}")
 
 
+HD_OBJECT = "blo0"  # a committed train object (label 28) of the smallest family: 80,000 points
+HD_TIMED_FRAMES = (16, 5)  # K8 timed at the hd dataset's and the live predictor's view sets
+HD_BUDGET_ATOL = 1e-4  # 20b: card against CPU continuous budget, in views (phase 12a's f32 forward: logit gap 0)
+HD_APPLICATION = (2, 1)  # 20c: one regression application of 2 micro-steps of 1 object (5 views at 720^2)
+
+
+def phase_hd(dev, root: str, k_splat: dict, card: str) -> None:
+    """(20) The hd arm at a cut size: (a) one small family object's hd
+    5-view set at 1280x720 through ``corpus_dataset.render_hd_sets`` (its
+    size test and one K8 launch, counted against the code; the launch's
+    kept frames bit-equal to ``splat_plain``), and K8 timed at the hd sets'
+    shapes; (b) ``HDPredictor`` around a fresh tiny@720 predictor, sent to
+    the hd set, its budget on the card against the CPU's; (c) one tiny@720
+    regression application at one object a micro-step, with accumulation,
+    timed."""
+    from PIL import Image
+
+    from nerf_prv_tpu_torch.experiments import corpus_dataset, label_protocol, prvnet_recipe
+    from nerf_prv_tpu_torch.experiments.families import make_family_object
+    from nerf_prv_tpu_torch.experiments.mode7_compare import HDPredictor
+
+    t_phase = time.perf_counter()
+    log(f"== phase 20: the hd arm ({HD_OBJECT}'s hd 5-view set at {CAMERA.width}x{CAMERA.height}, HDPredictor, "
+        f"one tiny@720 regression application of {HD_APPLICATION[0]} x {HD_APPLICATION[1]} objects)")
+    ws = os.path.join(root, "hd")
+    cfg = label_protocol.pipeline_config(ws)
+    label_protocol.install_reference_viewspace(cfg, [5, corpus_dataset.HD_VIEWS], probe=False)
+    object_setup_mod._ensure_viewspace(cfg.viewspace_path, cfg.num_of_views, dev)  # the 540 views, not timed
+    obj_cfg = cfg.replace(name_of_pcd=HD_OBJECT)
+    sync()
+    renders, size_tests = [], []
+    splat.launches = 0
+    t = time.perf_counter()
+    with corpus_recorders(renders, [], size_tests):
+        make_family_object(HD_OBJECT, label_protocol.model_dir(cfg))
+        scene = load_object(obj_cfg, HD_OBJECT, device=dev)
+        if not scene.ok:
+            raise SystemExit(f"20a: {HD_OBJECT} did not load")
+        corpus_dataset.render_hd_sets(scene, obj_cfg, hd_train=False, device=dev)
+    sync()
+    launched = splat.launches
+    hd5 = os.path.join(corpus_dataset.hd_path(obj_cfg), str(corpus_dataset.HD_INIT_VIEWS))
+    sizes = {Image.open(os.path.join(hd5, f"rgbaClip_{i}.png")).size for i in range(corpus_dataset.HD_INIT_VIEWS)}
+    log(f"20a: {HD_OBJECT} ({len(scene.points)} points) loaded and its hd 5-view set written in "
+        f"{time.perf_counter() - t:.2f} s; K8 launches {launched} (predicted {len(size_tests)} size tests + 1 set); "
+        f"PNG sizes {sizes}")
+    if launched != len(size_tests) + 1 or sizes != {(CAMERA.width, CAMERA.height)}:
+        raise SystemExit("20a: the hd set's launches or its images are not the ones the code predicts")
+    check_mode21_frames(renders, dev, where="20a")
+    pts = torch.from_numpy(np.asarray(scene.points, np.float32)).to(dev)
+    col = _colors01(scene.colors, len(pts), dev)
+    hd_rows = []
+    for frames in HD_TIMED_FRAMES:
+        vs = ViewSpace(_ensure_viewspace(cfg.viewspace_path, frames, dev), scene.points, cfg.view_space_radius)
+        w2c = _world_to_camera(camera_to_world(np.asarray(vs.views), scene.object_center)).to(dev)
+        hd_rows.append(splat_row(pts, col, w2c, True, cfg.points_size_cloud, card))
+    del pts, col
+
+    torch.manual_seed(PRV_SEED)
+    sd = make_pvbnet(PRV_ARCH).state_dict()
+    asked = []
+
+    class Recorded(BudgetPredictor):
+        def predict_from_coverage(self, coverage_dir, view_ids):
+            asked.append(coverage_dir)
+            return super().predict_from_coverage(coverage_dir, view_ids)
+
+    card_pred = Recorded(params=sd, arch=PRV_ARCH, crop=prvnet_recipe.HD_CROP, device=dev)
+    qcam5 = os.path.join(obj_cfg.gt_path, "5")
+    t = time.perf_counter()
+    budget = HDPredictor(card_pred).predict_from_coverage(qcam5, PRV_CASE)
+    sync()
+    call_s = time.perf_counter() - t
+    views = card_pred.coverage_views(hd5, PRV_CASE)
+    card_value = card_pred.predict_value_from_arrays(views)
+    cpu_value = BudgetPredictor(params=sd, arch=PRV_ARCH, crop=prvnet_recipe.HD_CROP,
+                                device="cpu").predict_value_from_arrays(views)
+    log(f"20b: HDPredictor asked for {qcam5} read {asked} (views {views.shape}); budget {budget} from "
+        f"{card_value:.6f} on the card against {cpu_value:.6f} on the CPU (|diff| {abs(card_value - cpu_value):.2e} "
+        f"views, need <= {HD_BUDGET_ATOL}); the call {call_s:.3f} s")
+    if asked != [hd5] or abs(card_value - cpu_value) > HD_BUDGET_ATOL or budget != int(np.round(card_value)):
+        raise SystemExit("20b: HDPredictor did not read the hd set, or the card's budget is not the CPU's")
+    del card_pred
+
+    micro_steps, objects = HD_APPLICATION
+    tcfg = dataclasses.replace(prvnet_recipe.tiny720_regression_config(), batch_size=micro_steps * objects,
+                               accum_steps=micro_steps)
+    model = prv_train_mod.init_model(tcfg, len(prvnet_recipe.PATTERN)).to(dev)
+    step = prv_train_mod.make_train_step(model, tcfg, mesh=make_mesh(devices=[dev]))
+    x = torch.as_tensor(np.stack([load_rgb(os.path.join(hd5, f"rgbaClip_{i}.png"), tcfg.image_size)
+                                  for i in prvnet_recipe.PATTERN]), device=dev)[None].repeat(objects, 1, 1, 1, 1)
+    y = torch.full((objects,), float(corpus_dataset.corpus_roster()["labels"][HD_OBJECT]), device=dev)
+    before = [p.detach().clone() for p in model.parameters()]
+    times = []
+    for _ in range(2):  # the first application warms cuDNN up
+        sync()
+        t = time.perf_counter()
+        losses = [float(step(x, y)) for _ in range(micro_steps)]
+        sync()
+        times.append(time.perf_counter() - t)
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
+    log(f"20c: tiny@720 regression application ({micro_steps} micro-steps of {objects} object x "
+        f"{len(prvnet_recipe.PATTERN)} views at {tcfg.image_size}^2): {times[1]:.3f} s (the first, warming up, "
+        f"{times[0]:.3f} s); losses {losses}; {moved} of {len(before)} parameter tensors moved; applications "
+        f"{step.count}; peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ({card})")
+    if step.count != 2 or not all(map(math.isfinite, losses)) or moved == 0:
+        raise SystemExit("20c: the accumulated application did not apply, or its loss is not finite")
+    del model, step, before, x
+    k_splat["launches_hd"] = launched
+    k_splat["hd_shapes"] = hd_rows
+    log(f"phase 20 ({card}) took {time.perf_counter() - t_phase:.1f} s; launches: splat {launched}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1", action="append", default=[], metavar="NAME=SOURCE.cu",
@@ -4702,6 +4827,7 @@ def main() -> int:
         phase_real_object(dev, root, k_gather, k_scatter, k_splat, card)
         phase_e2e(dev, root, k_gather, k_scatter, k_splat, card)
         phase_quality(dev, root, k_gather, k_scatter, k_splat, card)
+        phase_hd(dev, root, k_splat, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast]}))

@@ -51,7 +51,9 @@ METRICS = ("best_val_l1_mean", "val_pred_gt_corr")
 COMMITTED = {
     "tiny180": ("prvnet_tiny180.json", "prvnet_tiny180_ckpt", (50, 100, 200, 400, 800)),
     "atto180": ("prvnet_r5_scaling.json", "prvnet_r5_ckpt", (10, 25, 50, 100, 200)),
+    "tiny720": ("prvnet_tiny720.json", "prvnet_tiny720_ckpt", (50, 100, 200, 400, 800)),  # check_hd's
 }
+CHECKED = ("tiny180", "atto180")  # the recipes trained on pvb_dataset; tiny720 trains on the hd set (check_hd)
 # the committed atto@180 point trained 200 epochs where the round-3 point it
 # is set beside on the scaling curve trained 40 (ADVICE.md:5)
 ATTO_EPOCHS_NOTE = ("prvnet_r5_scaling.json trained 200 epochs on 90 objects; the round-3 point beside it on the "
@@ -96,7 +98,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS))
     ap.add_argument("--workers", type=int, default=6)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--recipe", choices=sorted(RECIPES), default="tiny180")
+    ap.add_argument("--recipe", choices=CHECKED, default="tiny180")
     ap.add_argument("--pretrain-epochs", type=int, default=None, help="default: the recipe's")
     ap.add_argument("--epochs", type=int, default=None, help="default: the recipe's")
     ap.add_argument("--out", default=None, help="default: results/prvnet_<recipe>_check.json")

@@ -12,11 +12,11 @@ workspace.  A row is read off the experiment directory as the reference
 reads it (:func:`read_row`); :func:`summarize` is its ``_summarize``.
 
 The reference's method 4 reads the tiny@720 predictor through
-``HDPredictor`` (not ported yet, see ``mode7_compare``).  The check runs
-method 4 with :class:`PinnedPredictor`, which answers each object's pinned
-budget through the same ``predict_from_coverage`` call, so the reference's
-code path (the budget's view space, its TSP path, the replay) runs with the
-committed budget.
+``HDPredictor`` (``mode7_compare.live_predictor`` wraps a checkpoint so).
+The check runs method 4 with :class:`PinnedPredictor`, which answers each
+object's pinned budget through the same ``predict_from_coverage`` call, so
+the reference's code path (the budget's view space, its TSP path, the
+replay) runs with the committed budget; ``check_hd`` runs it live.
 """
 
 from __future__ import annotations

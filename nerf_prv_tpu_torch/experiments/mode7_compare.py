@@ -10,13 +10,12 @@ deviations and PRV's PSNR and path-length deltas against each baseline, with
 their standard errors.
 
 The reference's PRV arm reads the tiny@720 predictor through
-``HDPredictor``, which redirects it to the object's hd (1280x720) 5-view
-set.  That predictor's checkpoint is not in the repo and its training takes
-about 5 h on the card (800 epochs at 720 squared), longer than a call to
-the card can hold, so ``HDPredictor`` and the hd set are not ported yet:
-the port's runs take PRV's budgets either pinned (the committed rows'
-``prv`` budgets, or those the port's own tiny@180 predictor gave, see
-``predict_budgets``) or from a predictor on the qcam 5-view set.
+:class:`HDPredictor`, which redirects it to the object's hd (1280x720)
+5-view set (``corpus_dataset.render_hd_sets``); :func:`live_predictor` wraps
+a checkpoint so wherever its crop is 720 or more, as the reference's scripts
+do.  The port's runs take PRV's budgets pinned (the committed rows' ``prv``
+budgets, or those a port predictor gave, see ``predict_budgets``) or from a
+live predictor.
 
 View spaces.  The reference's workspace held mode 0's sizes (3..47 step 4,
 5, 64 and 100, ``generate_hemisphere(n, seed=n)``) and every other size as
@@ -42,6 +41,32 @@ from .label_protocol import fit_counts, install_reference_viewspace, require_dev
 
 BASELINES = ("mode", "median", "mean", "gt")
 EVAL_SIZES = tuple(range(5, 61))  # mode 21's coverage sizes; mode 7's budgets lie among them
+
+
+class HDPredictor:
+    """Sends ``predict_from_coverage`` to the object's hd (1280x720) set of
+    the same size when it exists, so that a predictor trained at crop 720
+    sees the image geometry it was trained on; otherwise to the qcam
+    directory it was given (≙ exp_mode7_r4.py:50-64)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def predict_from_coverage(self, coverage_dir: str, view_ids) -> int:
+        hd_dir = os.path.join(os.path.dirname(coverage_dir), "hd", os.path.basename(coverage_dir))
+        if os.path.isdir(hd_dir):
+            coverage_dir = hd_dir
+        return self.inner.predict_from_coverage(coverage_dir, view_ids)
+
+
+def live_predictor(checkpoint: str, arch: str, crop: int, device="cuda"):
+    """A ``BudgetPredictor`` on ``checkpoint``, behind :class:`HDPredictor`
+    where ``crop`` is 720 or more: a 180-crop predictor trained on qcam
+    images (≙ exp_mode7_r4.py:89-91, exp_mode21_r4.py:75-77)."""
+    from ..prvnet.infer import BudgetPredictor
+
+    predictor = BudgetPredictor(checkpoint, arch=arch, crop=crop, device=device)
+    return HDPredictor(predictor) if crop >= 720 else predictor
 
 
 def _read(art: str, name: str) -> dict:

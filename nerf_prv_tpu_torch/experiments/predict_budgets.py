@@ -16,7 +16,8 @@ On the card:
    so a run that is refused may be repeated.
 3. Each of the 10 test objects loaded and its 5-view qcam set rendered;
    its budget predicted from views [0, 1, 3], as ``compare_objects`` asks
-   the predictor (``pipeline/compare.py``).
+   the predictor (``pipeline/compare.py``).  ``predict_test_budgets`` also
+   serves the tiny@720 predictor (``check_hd``), which reads the hd set.
 
 The budgets, the val metrics, the committed tiny@720 budgets beside them and
 the card go to ``nerf_prv_tpu_torch/experiments/results/prv_budgets.json``;
@@ -32,10 +33,10 @@ import json
 import os
 import time
 
-from .corpus_dataset import prepare_dataset
+from .corpus_dataset import prepare_dataset, render_hd_sets
 from .families import make_family_object
 from .label_protocol import model_dir, pipeline_config, require_device
-from .mode7_compare import committed_predictions, corpus_labels
+from .mode7_compare import HDPredictor, committed_predictions, corpus_labels, live_predictor
 from .predictor_gate import predictor_gate
 from .prvnet_recipe import ARCH, CROP, run_two_stage
 from .runs import LOG_DIR, RESULTS_DIR, WORKSPACE, Log, build_kernels, card_line, write_json
@@ -45,14 +46,15 @@ VAL_KEYS = ("val_pred_gt_corr", "val_pred_min_max", "val_pred_std", "val_gt_std"
             "best_val_accuracy", "pretrain_seconds", "train_seconds", "n_train", "n_val")
 
 
-def predict_test_budgets(cfg, names, checkpoint: str, device) -> dict:
+def predict_test_budgets(cfg, names, checkpoint: str, device, arch: str = ARCH, crop: int = CROP) -> dict:
     """name -> the predictor's budget from views ``INIT_VIEWS`` of the
-    object's 5-view set (rendered where missing)."""
+    object's 5-view set (rendered where missing).  A predictor of crop 720
+    or more reads the hd 5-view set instead (``live_predictor``), rendered
+    here where missing."""
     from ..pipeline.coverage import get_coverage
-    from ..prvnet.infer import BudgetPredictor
     from ..scene.object_setup import load_object
 
-    predictor = BudgetPredictor(checkpoint, arch=ARCH, crop=CROP, device=device)
+    predictor = live_predictor(checkpoint, arch, crop, device=device)
     out = {}
     for name in names:
         make_family_object(name, model_dir(cfg))
@@ -61,6 +63,8 @@ def predict_test_budgets(cfg, names, checkpoint: str, device) -> dict:
         if not scene.ok:
             raise RuntimeError(f"{name}: the object did not load")
         get_coverage(scene, obj_cfg, 5, device=device)
+        if isinstance(predictor, HDPredictor):
+            render_hd_sets(scene, obj_cfg, hd_train=False, device=device)
         out[name] = int(predictor.predict_from_coverage(os.path.join(obj_cfg.gt_path, "5"), list(INIT_VIEWS)))
     return out
 

@@ -18,6 +18,19 @@ ConvNeXt-V2 atto, CenterCrop 180.
   ``warmup_epochs = max(2 // 20, 2)``.
 - Regression: batch 8, one micro-batch, 200 epochs, constant blr 1.5e-4,
   five views.
+The tiny@720 arm (``--phase tiny``, ``:168-187``), the reference's own
+configuration, trains on the hd dataset (``corpus_dataset.HD_VIEWS`` views
+at 1280x720): ConvNeXt-V2 tiny, CenterCrop 720, effective batch 64 in both
+stages.
+- Pretrain: 100 epochs, blr 1.5e-3 with the warmup+cosine schedule,
+  ``warmup_epochs = max(100 // 20, 2)``, the ``HD_VIEWS`` views of each
+  object as samples.
+- Regression: 800 epochs, constant blr 1.5e-4, five views.
+The effective batch is built from the micro-batch an H100 holds at 720
+squared (about 1.8 GB an image): 16 micro-steps of 4 objects (20 images)
+in the regression and 4 of 16 images in the pretrain, where the reference
+takes 8 x 8 in both.  Micro-batches of one size average to the same
+gradient of the same 64 samples.
 It trains through the port's ``prvnet/train.py`` (``pretrain``,
 ``train_regression``); the seed is ``TrainConfig.seed``.
 """
@@ -26,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import time
 from typing import Optional
@@ -39,6 +53,7 @@ from ..prvnet.model import IMG_PATTERN
 from ..prvnet.train import (
     TrainConfig, _load_params, init_model, load_checkpoint, make_eval_step, pretrain, train_regression,
 )
+from .corpus_dataset import HD_VIEWS, N_VIEWS
 from .label_protocol import require_device
 
 ARCH = "convnextv2_tiny"
@@ -56,6 +71,11 @@ ATTO_PRETRAIN_BATCH = 32
 ATTO_PRETRAIN_EPOCHS = 2
 ATTO_EPOCHS = 200
 ATTO_PRETRAIN_BLR = 1.5e-4
+
+HD_CROP = 720
+HD_PRETRAIN_EPOCHS = 100
+HD_PRETRAIN_ACCUM = 4  # 16 single views a micro-step
+HD_ACCUM = 16  # 4 objects (20 views) a micro-step
 
 
 def pretrain_config(seed: int = 0, epochs: int = PRETRAIN_EPOCHS) -> TrainConfig:
@@ -84,11 +104,29 @@ def atto_regression_config(seed: int = 0, epochs: int = ATTO_EPOCHS) -> TrainCon
                        blr=BLR, use_schedule=False, seed=seed)
 
 
+def tiny720_pretrain_config(seed: int = 0, epochs: int = HD_PRETRAIN_EPOCHS) -> TrainConfig:
+    """The tiny@720 arm's pretrain config (≙ exp_prvnet_r4.py:100-106 at
+    ``--phase tiny``; 4 x 16 where the reference accumulates 8 x 8)."""
+    return TrainConfig(arch=ARCH, batch_size=BATCH, accum_steps=HD_PRETRAIN_ACCUM, epochs=epochs,
+                       image_size=HD_CROP, blr=PRETRAIN_BLR, use_schedule=True,
+                       warmup_epochs=max(epochs // 20, 2), seed=seed)
+
+
+def tiny720_regression_config(seed: int = 0, epochs: int = EPOCHS) -> TrainConfig:
+    """The tiny@720 arm's regression config (≙ exp_prvnet_r4.py:115-121 at
+    ``--phase tiny``; 16 x 4 where the reference accumulates 8 x 8)."""
+    return TrainConfig(arch=ARCH, batch_size=BATCH, accum_steps=HD_ACCUM, epochs=epochs, image_size=HD_CROP,
+                       blr=BLR, use_schedule=False, seed=seed)
+
+
 # recipe -> (pretrain config, regression config, pretrain epochs, regression epochs)
 RECIPES = {
     "tiny180": (pretrain_config, regression_config, PRETRAIN_EPOCHS, EPOCHS),
     "atto180": (atto_pretrain_config, atto_regression_config, ATTO_PRETRAIN_EPOCHS, ATTO_EPOCHS),
+    "tiny720": (tiny720_pretrain_config, tiny720_regression_config, HD_PRETRAIN_EPOCHS, EPOCHS),
 }
+# recipe -> the views of each object its pretrain takes as samples (the dataset's view space)
+VIEWSPACE = {"tiny180": N_VIEWS, "atto180": N_VIEWS, "tiny720": HD_VIEWS}
 
 
 def val_metrics(tcfg: TrainConfig, ckpt_dir: str, ds_root: str, val_split: str, mesh: Mesh) -> dict:
@@ -123,9 +161,10 @@ def run_two_stage(ds_root: str, out_dir: str, seed: int = 0, pretrain_epochs: Op
     ``out_dir`` (``pretrain/``, ``regression/``); returns the reference's
     artifact fields.  The epochs default to the recipe's.  ``mesh``
     defaults to one device, ``device``; ``regression_batch`` cuts the
-    regression's batch for a train split smaller than it (a rehearsal).  A finished seed leaves ``result.json`` and is not
-    trained again; a cut one resumes from its best checkpoints, as the
-    trainers do."""
+    regression's batch for a train split smaller than it (a rehearsal),
+    its accumulation to the largest that divides it.  A finished seed leaves
+    ``result.json`` and is not trained again; a cut one resumes from its
+    best checkpoints, as the trainers do."""
     done = os.path.join(out_dir, "result.json")
     if os.path.exists(done):
         with open(done) as f:
@@ -144,11 +183,12 @@ def run_two_stage(ds_root: str, out_dir: str, seed: int = 0, pretrain_epochs: Op
     pre_dir = os.path.join(out_dir, "pretrain")
     t0 = time.perf_counter()
     _, pre_best = pretrain(ds_root, train_split, val_split, cfg=pre_cfg, checkpoint_dir=pre_dir,
-                           log_every=log_every, mesh=mesh, viewspace_size=64)
+                           log_every=log_every, mesh=mesh, viewspace_size=VIEWSPACE[recipe])
     t_pre = time.perf_counter() - t0
     tcfg = make_reg(seed, epochs)
     if regression_batch is not None:
-        tcfg = dataclasses.replace(tcfg, batch_size=regression_batch)
+        tcfg = dataclasses.replace(tcfg, batch_size=regression_batch,
+                                   accum_steps=math.gcd(regression_batch, tcfg.accum_steps))
     ckpt_dir = os.path.join(out_dir, "regression")
     t0 = time.perf_counter()
     _, best = train_regression(ds_root, train_split, val_split, cfg=tcfg, pattern=PATTERN,
@@ -156,8 +196,9 @@ def run_two_stage(ds_root: str, out_dir: str, seed: int = 0, pretrain_epochs: Op
                                premodel_file=os.path.join(pre_dir, "best_pretrain_checkpoint.msgpack"))
     t_train = time.perf_counter() - t0
     art = {
-        "recipe": recipe, "arch": tcfg.arch, "seed": seed, "image_size": CROP, "viewspace_size": 64,
-        "batch_size": tcfg.batch_size, "accum_steps": 1, "pretrain_batch_size": pre_cfg.batch_size, "blr": tcfg.blr, "use_schedule": tcfg.use_schedule, "pretrain_blr": pre_cfg.blr,
+        "recipe": recipe, "arch": tcfg.arch, "seed": seed, "image_size": tcfg.image_size,
+        "viewspace_size": VIEWSPACE[recipe], "batch_size": tcfg.batch_size, "accum_steps": tcfg.accum_steps,
+        "pretrain_batch_size": pre_cfg.batch_size, "blr": tcfg.blr, "use_schedule": tcfg.use_schedule, "pretrain_blr": pre_cfg.blr,
         "pretrain_schedule": pre_cfg.use_schedule, "pretrain_warmup_epochs": pre_cfg.warmup_epochs,
         "n_train": len(read_split(train_split)), "n_val": len(read_split(val_split)),
         "pretrain_epochs": pretrain_epochs, "pretrain_best_l1": pre_best["l1_mean"], "pretrain_seconds": t_pre,

@@ -53,6 +53,7 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESULTS = os.path.join(REPO, "nerf_prv_tpu_torch", "experiments", "results")
 LABELS_CHECK = os.path.join(RESULTS, "labels_check.json")
+PILOT2_CHECK = os.path.join(RESULTS, "label_spread_pilot2_check.json")
 FIELDS_CPU = os.path.join(RESULTS, "fields_cpu.json")
 TRAINERS_CPU = os.path.join(RESULTS, "trainers_cpu.json")
 QUALITY_SCENES_CPU = os.path.join(RESULTS, "quality_scenes_cpu.json")
@@ -91,18 +92,26 @@ def run_labels(root: str, names) -> None:
 
 
 def merge_labels(root: str) -> None:
-    """``<root>/labels.json`` into ``labels_check.json`` under ``jax_cpu``,
-    beside the port's card runs of the same objects."""
+    """``<root>/labels.json`` into ``labels_check.json`` under ``jax_cpu``
+    (beside the runs merged before), with the port's card runs of the same
+    objects: their PSNRs and labels by NeRF seed, from the label check and
+    from pilot 2's check."""
     with open(os.path.join(root, "labels.json")) as f:
         jax_runs = json.load(f)
     with open(LABELS_CHECK) as f:
         check = json.load(f)
+    port_runs = dict(check["runs"])
+    if os.path.exists(PILOT2_CHECK):
+        with open(PILOT2_CHECK) as f:
+            port_runs.update({k: v for k, v in json.load(f)["runs"].items() if k not in port_runs})
+    runs = {**check.get("jax_cpu", {}).get("runs", {}), **jax_runs}
+    card = {n: {s: port_runs[f"{n}@{s}"] for s in (0, 1, 2) if f"{n}@{s}" in port_runs} for n in runs}
     check["jax_cpu"] = dict(
         what="today's JAX package, exp_label_spread.run_label_protocol at the full protocol on the CPU "
              "(tests/jax_reference_runs.py labels)",
-        runs=jax_runs,
-        port_card={n: {s: check["runs"][f"{n}@{s}"]["psnr"] for s in (0, 1, 2) if f"{n}@{s}" in check["runs"]}
-                   for n in jax_runs},
+        runs=runs,
+        port_card={n: {s: r["psnr"] for s, r in by_seed.items()} for n, by_seed in card.items()},
+        port_card_labels={n: {s: r["label"] for s, r in by_seed.items()} for n, by_seed in card.items()},
     )
     with open(LABELS_CHECK, "w") as f:
         json.dump(check, f, indent=1)

@@ -383,7 +383,7 @@ def test_port_imports_no_jax():
         " '.experiments.production10', '.experiments.toy', '.experiments.e2e_mode21', '.experiments.launches',"
         " '.experiments.check_e2e_mode21', '.experiments.label_spread2', '.experiments.check_pilot2',"
         " '.experiments.warmstart', '.experiments.quality_scenes', '.experiments.quality_studies',"
-        " '.experiments.check_quality')} <= set(names)\n"
+        " '.experiments.check_quality', '.experiments.tiny720', '.experiments.check_hd')} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )
