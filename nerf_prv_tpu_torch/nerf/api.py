@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..convert import params_from_numpy, params_to_numpy
+from ..utils.timing import span
 from .extract import render_video, save_geometry
 from .metrics import evaluate_pair, mse2psnr
 from .model import NerfConfig
@@ -95,36 +96,39 @@ def eval_nerf(params, test_json, cfg: Optional[NerfConfig] = None) -> Dict[str, 
     ``test_json`` may be a transforms.json path or a preloaded
     :class:`RayDataset`.
     """
-    cfg = cfg or NerfConfig()
-    ds = (
-        test_json
-        if isinstance(test_json, RayDataset)
-        else load_dataset(test_json, with_images=True)
-    )
-    device = next(iter(params.values())).device
-    aux = build_render_aux(params, cfg)  # once per eval, not per group
-    psnrs, ssims, mses = [], [], []
-    group = 8  # frames rendered + scored per batch
-    for start in range(0, ds.n_frames, group):
-        stop = min(start + group, ds.n_frames)
-        imgs = render_views(
-            params, ds.origins[start:stop], ds.rotations[start:stop], ds.camera, cfg, aux=aux
+    with span("eval_nerf"):
+        cfg = cfg or NerfConfig()
+        ds = (
+            test_json
+            if isinstance(test_json, RayDataset)
+            else load_dataset(test_json, with_images=True)
         )
-        gt = torch.as_tensor(ds.pixels[start:stop], device=device)
-        p, s, m = evaluate_pair(imgs[..., :3], gt[..., :3] * gt[..., 3:4])
-        psnrs.append(p.cpu().numpy())
-        ssims.append(s.cpu().numpy())
-        mses.append(m.cpu().numpy())
-    psnr = np.concatenate(psnrs) if psnrs else np.zeros(0, np.float32)
-    ssim = np.concatenate(ssims) if ssims else np.zeros(0, np.float32)
-    mse = np.concatenate(mses) if mses else np.zeros(0, np.float32)
-    return {
-        "PSNR": float(psnr.mean()) if len(psnr) else 0.0,
-        "SSIM": float(ssim.mean()) if len(ssim) else 0.0,
-        "PSNR_avgmse": float(mse2psnr(torch.tensor(mse.mean()))) if len(mse) else 0.0,
-        "min_PSNR": float(psnr.min()) if len(psnr) else float("inf"),
-        "max_PSNR": float(psnr.max()) if len(psnr) else -float("inf"),
-    }
+        device = next(iter(params.values())).device
+        aux = build_render_aux(params, cfg)  # once per eval, not per group
+        psnrs, ssims, mses = [], [], []
+        group = 8  # frames rendered + scored per batch
+        for start in range(0, ds.n_frames, group):
+            stop = min(start + group, ds.n_frames)
+            with span("eval.render"):
+                imgs = render_views(
+                    params, ds.origins[start:stop], ds.rotations[start:stop], ds.camera, cfg, aux=aux
+                )
+            with span("eval.score"):
+                gt = torch.as_tensor(ds.pixels[start:stop], device=device)
+                p, s, m = evaluate_pair(imgs[..., :3], gt[..., :3] * gt[..., 3:4])
+                psnrs.append(p.cpu().numpy())
+                ssims.append(s.cpu().numpy())
+                mses.append(m.cpu().numpy())
+        psnr = np.concatenate(psnrs) if psnrs else np.zeros(0, np.float32)
+        ssim = np.concatenate(ssims) if ssims else np.zeros(0, np.float32)
+        mse = np.concatenate(mses) if mses else np.zeros(0, np.float32)
+        return {
+            "PSNR": float(psnr.mean()) if len(psnr) else 0.0,
+            "SSIM": float(ssim.mean()) if len(ssim) else 0.0,
+            "PSNR_avgmse": float(mse2psnr(torch.tensor(mse.mean()))) if len(mse) else 0.0,
+            "min_PSNR": float(psnr.min()) if len(psnr) else float("inf"),
+            "max_PSNR": float(psnr.max()) if len(psnr) else -float("inf"),
+        }
 
 
 def save_metrics(path: str, metrics: Dict[str, float]) -> None:

@@ -51,6 +51,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.timing import span
 from .model import NerfConfig, init_params
 from .rays import RayDataset, rays_from_pixels
 from .render import render_rays
@@ -162,9 +163,12 @@ def train_step(params, opt, batch, jitter, cfg: NerfConfig, generator=None) -> t
     """One optimizer step for all K objects, in place; returns the (K,)
     losses, still on the device."""
     opt.zero_grad(set_to_none=True)
-    losses = batch_loss(params, batch, jitter, cfg, generator=generator)
-    losses.sum().backward()  # object k's gradient: that of its own mean loss
-    opt.step()
+    with span("train.forward"):
+        losses = batch_loss(params, batch, jitter, cfg, generator=generator)
+    with span("train.backward"):
+        losses.sum().backward()  # object k's gradient: that of its own mean loss
+    with span("train.adam"):
+        opt.step()
     return losses.detach()
 
 
@@ -179,26 +183,31 @@ class _ObjectsTrainer:
     generator (seeded ``seed``), the stacked parameters and their Adam."""
 
     def __init__(self, datasets, cfg: NerfConfig, seed: int, device):
-        self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.k = len(datasets)
-        self.params = init_batched_params(self.generator, cfg, self.k, device=self.device)
-        for v in self.params.values():
-            v.requires_grad_(True)
-        self.opt = make_optimizer(self.params, cfg)
-        self.obj = upload_objects(datasets, cfg, self.device)
-        self.losses: List[torch.Tensor] = []
+        with span("train.prep"):
+            self.device = torch.device(device)
+            self.generator = torch.Generator(device=self.device).manual_seed(seed)
+            self.k = len(datasets)
+            self.params = init_batched_params(self.generator, cfg, self.k, device=self.device)
+            for v in self.params.values():
+                v.requires_grad_(True)
+            self.opt = make_optimizer(self.params, cfg)
+            self.obj = upload_objects(datasets, cfg, self.device)
+            self.losses: List[torch.Tensor] = []
 
     def step(self, phase_cfg: NerfConfig) -> None:
-        n_rays = phase_cfg.train_rays
-        batch = sample_objects(self.generator, self.obj, n_rays)
-        if phase_cfg.n_importance > 0:
-            # the march draws its jitter and its resampling uniforms itself
-            loss = train_step(self.params, self.opt, batch, None, phase_cfg, self.generator)
-        else:
-            jitter = torch.rand((self.k * n_rays, phase_cfg.n_samples), generator=self.generator, device=self.device)
-            loss = train_step(self.params, self.opt, batch, jitter, phase_cfg)
-        self.losses.append(loss)
+        with span("train.step"):
+            n_rays = phase_cfg.train_rays
+            # with importance sampling the march draws its jitter and its
+            # resampling uniforms itself, from the generator
+            importance = phase_cfg.n_importance > 0
+            with span("train.sample"):
+                batch = sample_objects(self.generator, self.obj, n_rays)
+                jitter = None
+                if not importance:
+                    jitter = torch.rand((self.k * n_rays, phase_cfg.n_samples), generator=self.generator,
+                                        device=self.device)
+            loss = train_step(self.params, self.opt, batch, jitter, phase_cfg, self.generator if importance else None)
+            self.losses.append(loss)
 
     def result(self) -> Tuple[dict, np.ndarray]:
         k = self.k
@@ -246,23 +255,24 @@ def train_batch(
     stay on the device until the end).
     """
     del chunk_steps
-    cfg = cfg or NerfConfig()
-    datasets = list(datasets)
-    if mesh is None:
-        return _train_objects(datasets, cfg, seed, device)
-    from ..parallel.mesh import _axis_devices
+    with span("train_batch"):
+        cfg = cfg or NerfConfig()
+        datasets = list(datasets)
+        if mesh is None:
+            return _train_objects(datasets, cfg, seed, device)
+        from ..parallel.mesh import _axis_devices
 
-    devices = _axis_devices(mesh, "dp")
-    k, m = len(datasets), len(devices)
-    padded = datasets + [datasets[-1]] * ((-k) % m)
-    c = len(padded) // m
-    trainers = [_ObjectsTrainer(padded[i * c : (i + 1) * c], cfg, seed + i, dev) for i, dev in enumerate(devices)]
-    _train_interleaved(trainers, cfg)
-    results = [t.result() for t in trainers]
-    first = devices[0]
-    params = {name: torch.cat([p[name].to(first) for p, _ in results])[:k] for name in results[0][0]}
-    losses = np.concatenate([ls for _, ls in results], axis=1)[:, :k]
-    return params, losses
+        devices = _axis_devices(mesh, "dp")
+        k, m = len(datasets), len(devices)
+        padded = datasets + [datasets[-1]] * ((-k) % m)
+        c = len(padded) // m
+        trainers = [_ObjectsTrainer(padded[i * c : (i + 1) * c], cfg, seed + i, dev) for i, dev in enumerate(devices)]
+        _train_interleaved(trainers, cfg)
+        results = [t.result() for t in trainers]
+        first = devices[0]
+        params = {name: torch.cat([p[name].to(first) for p, _ in results])[:k] for name in results[0][0]}
+        losses = np.concatenate([ls for _, ls in results], axis=1)[:, :k]
+        return params, losses
 
 
 def slice_params(batched_params, i: int) -> dict:

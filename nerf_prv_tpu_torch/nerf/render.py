@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.row_gather import row_gather
+from ..utils.timing import span
 from .model import NerfConfig, density, field
 from .rays import pixel_dirs_cam, ray_aabb, ray_sphere
 from .voxelfield import cell_and_frac, corner_weights, lattice_corner_raw
@@ -454,62 +455,68 @@ def render_views(
     before the level-2 probe and the march.  ``defer=True`` returns
     ``(rgba, finish)`` with a ``finish()`` that returns None.
     """
-    if aux is None and cfg.render_coarse > 0:
-        aux = build_render_aux(params, cfg)
-    if cfg.render_coarse <= 0:
-        aux = None  # render_rays reads the aux only when it probes
-    device = next(iter(params.values())).device
-    chunk = chunk or _default_chunk(cfg)
-    origins = torch.as_tensor(origins, dtype=torch.float32, device=device)
-    rotations = torch.as_tensor(rotations, dtype=torch.float32, device=device)
-    n_frames = origins.shape[0]
-    h, w = camera.height, camera.width
-    d_cam = _pixel_dirs(camera, device)
-    n = n_frames * h * w
-    if cfg.bound == "sphere" and w >= 512:
-        # tile-level compaction: march only tiles with a sphere hit
-        t = _RENDER_TILE
-        npad = (-n) % t
-        n_p = n + npad
-        n_tiles = n_p // t
-        od_t, order_t, n_act = _assemble_tiles(origins, rotations, d_cam, t, npad)
-        n_act = int(n_act)
-        ct = max(chunk // t, 1)
-        if aux is not None:
-            rgba_t = _render_tiles_two_phase(params, od_t, order_t[:n_act], cfg, aux, chunk)
+    with span("render.assemble"):
+        if aux is None and cfg.render_coarse > 0:
+            aux = build_render_aux(params, cfg)
+        if cfg.render_coarse <= 0:
+            aux = None  # render_rays reads the aux only when it probes
+        device = next(iter(params.values())).device
+        chunk = chunk or _default_chunk(cfg)
+        origins = torch.as_tensor(origins, dtype=torch.float32, device=device)
+        rotations = torch.as_tensor(rotations, dtype=torch.float32, device=device)
+        n_frames = origins.shape[0]
+        h, w = camera.height, camera.width
+        d_cam = _pixel_dirs(camera, device)
+        n = n_frames * h * w
+        tiles = cfg.bound == "sphere" and w >= 512
+        if tiles:
+            # tile-level compaction: march only tiles with a sphere hit
+            t = _RENDER_TILE
+            npad = (-n) % t
+            n_p = n + npad
+            n_tiles = n_p // t
+            od_t, order_t, n_act = _assemble_tiles(origins, rotations, d_cam, t, npad)
+            n_act = int(n_act)
+        elif cfg.bound == "sphere":
+            # per-ray compaction: hits first, then a gather back to pixel order
+            o_all, d_all = _assemble_rays(origins, rotations, d_cam)
+            od_sorted, pos, n_hit = _compact_rays(o_all, d_all)
+            n_hit = int(n_hit)
         else:
-            outs = [
-                _render_tiles(params, od_t, order_t[i : min(i + ct, n_act)], cfg)
-                for i in range(0, n_act, ct)
-            ]
-            rgba_t = torch.cat(outs) if outs else torch.zeros((0, 4 * t), device=device)
-        out = _scatter_tiles(rgba_t, order_t[:n_act], n_tiles)
-        rgba = out.reshape(n_p, 4)[:n]
-        rgb, a = rgba[:, :3], rgba[:, 3]
-    elif cfg.bound == "sphere":
-        # per-ray compaction: hits first, then a gather back to pixel order
-        o_all, d_all = _assemble_rays(origins, rotations, d_cam)
-        od_sorted, pos, n_hit = _compact_rays(o_all, d_all)
-        n_hit = int(n_hit)
-        outs = []
-        for i in range(0, n_hit, chunk):
-            od = od_sorted[i : min(i + chunk, n_hit)]
-            rgb, a = render_rays(params, od[:, :3], od[:, 3:], cfg, aux=aux)
-            outs.append(torch.cat([rgb, a[:, None]], dim=-1))
-        rgba_hit = torch.cat(outs) if outs else torch.zeros((0, 4), device=device)
-        rgb, a = _gather_back(rgba_hit, pos)
-    else:
-        o_all, d_all = _assemble_rays(origins, rotations, d_cam)
-        outs_rgb, outs_a = [], []
-        for i in range(0, n, chunk):
-            rgb, a = render_rays(params, o_all[i : i + chunk], d_all[i : i + chunk], cfg, aux=aux)
-            outs_rgb.append(rgb)
-            outs_a.append(a)
-        rgb = torch.cat(outs_rgb)
-        a = torch.cat(outs_a)
-    rgba = torch.cat(
-        [rgb.reshape(n_frames, h, w, 3), a.reshape(n_frames, h, w)[..., None]], dim=-1
-    )
+            o_all, d_all = _assemble_rays(origins, rotations, d_cam)
+    with span("render.march"):
+        if tiles:
+            ct = max(chunk // t, 1)
+            if aux is not None:
+                rgba_t = _render_tiles_two_phase(params, od_t, order_t[:n_act], cfg, aux, chunk)
+            else:
+                outs = [
+                    _render_tiles(params, od_t, order_t[i : min(i + ct, n_act)], cfg)
+                    for i in range(0, n_act, ct)
+                ]
+                rgba_t = torch.cat(outs) if outs else torch.zeros((0, 4 * t), device=device)
+            out = _scatter_tiles(rgba_t, order_t[:n_act], n_tiles)
+            rgba = out.reshape(n_p, 4)[:n]
+            rgb, a = rgba[:, :3], rgba[:, 3]
+        elif cfg.bound == "sphere":
+            outs = []
+            for i in range(0, n_hit, chunk):
+                od = od_sorted[i : min(i + chunk, n_hit)]
+                rgb, a = render_rays(params, od[:, :3], od[:, 3:], cfg, aux=aux)
+                outs.append(torch.cat([rgb, a[:, None]], dim=-1))
+            rgba_hit = torch.cat(outs) if outs else torch.zeros((0, 4), device=device)
+            rgb, a = _gather_back(rgba_hit, pos)
+        else:
+            outs_rgb, outs_a = [], []
+            for i in range(0, n, chunk):
+                rgb, a = render_rays(params, o_all[i : i + chunk], d_all[i : i + chunk], cfg, aux=aux)
+                outs_rgb.append(rgb)
+                outs_a.append(a)
+            rgb = torch.cat(outs_rgb)
+            a = torch.cat(outs_a)
+        rgba = torch.cat(
+            [rgb.reshape(n_frames, h, w, 3), a.reshape(n_frames, h, w)[..., None]], dim=-1
+        )
     return (rgba, _finish_noop) if defer else rgba
 
 

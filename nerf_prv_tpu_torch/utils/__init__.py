@@ -1,6 +1,6 @@
-"""Timing, profiling and offline debug visualization."""
+"""Spans, the device trace and offline debug visualization."""
 
-from .timing import GLOBAL_TIMINGS, Stopwatch, TimingRegistry, device_trace
+from .timing import device_trace, drain, span, spans
 from .visualize import (
     export_trajectory_ply,
     export_view_space_ply,
@@ -9,12 +9,12 @@ from .visualize import (
 )
 
 __all__ = [
-    "GLOBAL_TIMINGS",
-    "Stopwatch",
-    "TimingRegistry",
     "device_trace",
+    "drain",
     "export_trajectory_ply",
     "export_view_space_ply",
     "plot_view_space_png",
+    "span",
+    "spans",
     "trajectory_polyline",
 ]

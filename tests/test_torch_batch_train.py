@@ -397,3 +397,65 @@ def test_make_mesh_without_a_card_asks_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match=r"devices=\['cpu'\]"):
         tmesh.make_mesh()
     assert tmesh.make_mesh(("dp",), devices=["cpu"]).size == 1
+
+
+# names of kernels and kernel families, which the device trace's readers
+# match: no span may carry one
+_KERNEL_WORDS = ("gather", "scatter", "index", "copy", "gemm", "scan", "elementwise", "hash_encode")
+
+
+def _spans_of(fn):
+    from nerf_prv_tpu_torch.utils import timing
+
+    timing.drain()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+    got = timing.drain()
+    assert not [s.name for s in got if any(w in s.name for w in _KERNEL_WORDS)]
+    return out, got
+
+
+def _children(got, parent):
+    return sorted(s.name for s in got if s.parent == parent.id)
+
+
+def test_train_batch_records_its_spans_under_one_root(scenes):
+    """One ``train_batch`` root, one ``train.prep`` and a ``train.step`` a
+    step, each step with its four children, all under the root."""
+    (a, _), (b, _) = scenes
+    _, tcfg = _cfgs("voxel", n_steps=5, train_rays=64, train_warmup_steps=2, train_warmup_samples=8)
+    ds = [tr.load_dataset(a), tr.load_dataset(b)]
+    (_, losses), got = _spans_of(lambda: tbt.train_batch(ds, tcfg, seed=0, device="cpu"))
+    assert losses.shape == (5, 2)
+    (root,) = [s for s in got if s.name == "train_batch"]
+    assert root.parent is None and all(s.root == root.id for s in got)
+    (prep,) = [s for s in got if s.name == "train.prep"]
+    steps = [s for s in got if s.name == "train.step"]
+    assert len(steps) == 5 and prep.parent == root.id and all(s.parent == root.id for s in steps)
+    assert _children(got, root) == ["train.prep"] + ["train.step"] * 5
+    for s in steps:
+        assert _children(got, s) == ["train.adam", "train.backward", "train.forward", "train.sample"]
+        assert prep.end_ns <= s.start_ns and root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+    assert len(got) == 2 + 5 * 5
+
+
+@pytest.mark.parametrize("field", ["voxel", "hash"])
+def test_eval_nerf_records_a_render_and_a_score_a_group(field, scenes):
+    """10 frames are two groups of at most 8: an ``eval.render`` (with its
+    assembly and march) and an ``eval.score`` each, under one root."""
+    (_, _), (b, _) = scenes
+    _, tcfg = _cfgs(field)
+    ds = tr.load_dataset(b)
+    ten = dataclasses.replace(ds, origins=np.concatenate([ds.origins, ds.origins[:2]]),
+                              rotations=np.concatenate([ds.rotations, ds.rotations[:2]]),
+                              pixels=np.concatenate([ds.pixels, ds.pixels[:2]]))
+    params = tm.init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
+    scores, got = _spans_of(lambda: tapi.eval_nerf(params, ten, tcfg))
+    assert np.isfinite(scores["PSNR"])
+    (root,) = [s for s in got if s.name == "eval_nerf"]
+    assert root.parent is None and all(s.root == root.id for s in got)
+    assert _children(got, root) == ["eval.render"] * 2 + ["eval.score"] * 2
+    for s in got:
+        if s.name == "eval.render":
+            assert _children(got, s) == ["render.assemble", "render.march"]
+    assert len(got) == 1 + 2 * 4

@@ -2,8 +2,8 @@
 budget comparison's statistics and table, mode 21 (the NBV experiment) with
 methods 4, 0 and 1 on one tiny workspace and the same PRVNet weights, a
 tiny mode-21 run of the port alone that trains and scores its NeRF, the
-command line's modes 0 and 20, the ready-file servers and the timing
-utilities."""
+command line's modes 0 and 20 and the ready-file servers (the spans and
+the device trace: ``test_torch_timing.py``)."""
 
 import json
 import os
@@ -35,7 +35,6 @@ from nerf_prv_tpu_torch.pipeline import modes as tmodes
 from nerf_prv_tpu_torch.pipeline import nbv as tnbv
 from nerf_prv_tpu_torch.prvnet import infer as tinfer
 from nerf_prv_tpu_torch.servers import infer_server, train_server
-from nerf_prv_tpu_torch.utils import timing as ttiming
 from nerf_prv_tpu_torch.viewspace.hemisphere import ViewSpace
 
 from synthetic import make_object
@@ -327,23 +326,3 @@ def test_infer_server_roundtrip_matches_jax(tmp_path):
     assert got == jp.predict_from_dir(images) and 13 <= got <= 58
     assert os.path.exists(os.path.join(root, "data", "ready_py.txt"))
     assert not os.path.exists(os.path.join(root, "data", "ready_c++.txt"))
-
-
-# ---------------------------------------------------------------- timing
-
-
-def test_timing_registry_and_trace(tmp_path):
-    reg = ttiming.TimingRegistry()
-    for _ in range(3):
-        with reg.phase("train"):
-            pass
-    assert reg.summary()["train"]["count"] == 3
-    reg.write_artifact(str(tmp_path), "train_time", "0", value=1.5)
-    assert open(tmp_path / "train_time" / "0.txt").read() == "1.5\n"
-    reg.dump(str(tmp_path / "t.json"))
-    assert json.load(open(tmp_path / "t.json"))["train"]["count"] == 3
-    sw = ttiming.Stopwatch()
-    assert sw.lap() >= 0
-    with ttiming.device_trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
