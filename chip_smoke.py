@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 Phases:
-(1) build the six kernels from ``nerf_prv_tpu_torch/ops/csrc``, one nvcc
+(1) build the seven kernels from ``nerf_prv_tpu_torch/ops/csrc``, one nvcc
     process each, started together;
 (2) each kernel against its plain version at the paths' full shapes (and
     the row kernels at the batched trainer's, four grids read as one table),
@@ -21,7 +21,11 @@ Phases:
     the sort-based plain version, at both training shapes on uniform points
     and on a training batch's own march points, with two broken variants
     that must fail, beside the atomic adds its design rules issue and its
-    waves (both worked out on the host, and logged only).  Every kernel time is a device time
+    waves (both worked out on the host, and logged only); ``frames_to_u8``
+    (the training frames' uint8 quantisation) on one object's 16 frames at
+    1280x720, byte-equal to ``frames_to_u8_plain`` on the same card tensor
+    and to numpy's formula on the host, beside its byte bound and the plain
+    version's time.  Every kernel time is a device time
     (``device_ms``: a replayed CUDA graph of the wrapper's calls), printed
     beside the time of a call through the wrapper (``time_ms``), and the
     two are cross-checked where the kernel outlasts the host;
@@ -33,7 +37,8 @@ Phases:
 (5) train the default full-width voxel field through ``run(scene, ...)``
     on 16 frames at 1280x720 for the full 2,500 steps, score it on 4
     held-out frames and write screenshots; check the losses, the PSNR and
-    the launch counts; time and profile steps and one eval;
+    the launch counts (one ``frames_to_u8`` a training); time and profile
+    steps and one eval;
 (6) one training step through the kernels against the same step through
     the plain versions (loss and every gradient), the same through two
     deliberately broken kernels (which must fail), and one small f32 voxel
@@ -60,12 +65,14 @@ Phases:
 (11) (a) four different objects (the sphere in four colour patterns, 12 and
     3 x 16 frames) trained together through ``train_batch`` at full width
     for the full 2,500 steps, each scored on its own 4 held-out frames,
-    with exactly one training's row launches for all four; tight steps of
+    with exactly one training's row launches for all four and one
+    ``frames_to_u8`` launch an object a call; tight steps of
     one object and of four timed in turns, one batched step profiled;
     (b) one batched step through the kernels against the four single-object
     steps on the same rays and jitter, and a broken gather that drops the
     object offset, which must fail; (c) two hash fields trained together
-    for 150 steps, K1 and K1b counted per object; (d) 3,000 PSNR curves fit
+    for 150 steps, K1 and K1b counted per object, ``frames_to_u8`` once an
+    object; (d) 3,000 PSNR curves fit
     and labeled on the card against the CPU; (e) ``precompute_paths`` for
     3..60 views on the port's view spaces, and the card's edge matrix
     against the float64 scalar local path;
@@ -236,6 +243,7 @@ from nerf_prv_tpu_torch.nerf.rays import grid_cameras, load_dataset, pixel_dirs_
 from nerf_prv_tpu_torch.nerf.render import render_views  # noqa: E402
 from nerf_prv_tpu_torch.ops import _build  # noqa: E402
 from nerf_prv_tpu_torch.ops import fused as fused_mod  # noqa: E402
+from nerf_prv_tpu_torch.ops.frames_u8 import frames_to_u8, frames_to_u8_plain  # noqa: E402
 from nerf_prv_tpu_torch.ops.hash_encode import hash_encode, hash_encode_backward  # noqa: E402
 from nerf_prv_tpu_torch.ops.row_gather import row_gather, row_gather_plain  # noqa: E402
 from nerf_prv_tpu_torch.ops.row_scatter_add import row_scatter_add, row_scatter_add_plain  # noqa: E402
@@ -526,7 +534,7 @@ def phase_build():
     log("== phase 1: build")
     t0 = time.perf_counter()
     logs = _build.build(["hash_encode", "hash_encode_backward", "row_gather", "row_scatter_add", "splat",
-                         "voxel_cast"])
+                         "voxel_cast", "frames_u8"])
     log(f"built in {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -1064,6 +1072,59 @@ def phase_row_kernels(dev, source: BatchSource) -> tuple:
     return gather, scatter, tight_us
 
 
+def frames_bound_ms(n: int) -> float:
+    """``frames_to_u8``'s byte bound: four bytes read and one written an element."""
+    return n * 5 / HBM_BYTES_PER_S * 1e3
+
+
+def phase_frames_u8(dev) -> dict:
+    log("== phase 2d: frames_to_u8 against frames_to_u8_plain and numpy's formula, one object's training frames")
+    shape = (N_TRAIN_FRAMES, CAMERA.height, CAMERA.width, 4)
+    src = torch.rand(shape, generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    # the values where rounding decides the byte lead the set: every level, every
+    # point half way between two with its float32 neighbours, the range's ends
+    levels = np.arange(256, dtype=np.float64)
+    halves = ((levels + 0.5) / 255).astype(np.float32)
+    edges = np.concatenate([
+        (levels / 255).astype(np.float32), np.nextafter(halves, np.float32(-1)), halves,
+        np.nextafter(halves, np.float32(2)), np.array([0.0, 1.0, -0.0, -1e-8, 1 + 1e-7, 2.0, -3.0], np.float32),
+    ])
+    src.view(-1)[: edges.size] = torch.from_numpy(edges).to(dev)
+    out = torch.empty(shape, dtype=torch.uint8, device=dev)
+    before = frames_to_u8.launches
+    frames_to_u8(src, out)
+    plain = frames_to_u8_plain(src)
+    sync()
+    if frames_to_u8.launches != before + 1:
+        raise SystemExit("frames_to_u8 did not launch its kernel once on a card tensor")
+    host = src.cpu().numpy()
+    want = np.clip(host * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    off_plain = int((out != plain).sum())
+    off_numpy = int((out.cpu().numpy() != want).sum())
+    plain_off_numpy = int((plain.cpu().numpy() != want).sum())
+    log(f"frames_to_u8 on {src.numel():,} elements ({edges.size} edge values first): {off_plain} bytes differ from "
+        f"frames_to_u8_plain on the card, {off_numpy} from numpy on the host (need 0 and 0); the plain version on "
+        f"the card differs from numpy in {plain_off_numpy}")
+    if off_plain or off_numpy:
+        raise SystemExit("frames_to_u8 is not byte-equal to its plain version and to numpy's formula")
+    del plain, host, want
+    label = f"F={N_TRAIN_FRAMES} {CAMERA.width}x{CAMERA.height} RGBA, one object's training frames"
+    row = dict(shape=label, max_abs_err=0.0, library_ms=None, bound_by="bytes", bound_ms=frames_bound_ms(src.numel()))
+    row.update(kernel_times(lambda: frames_to_u8(src, out), f"frames_to_u8 {label}"))
+    row["plain_ms"] = time_ms(lambda: frames_to_u8_plain(src), iters=50, warmup=5)
+    log(f"frames_to_u8 {label}: {times_text(row)}, plain on the card {row['plain_ms']:.4f} ms (5 warm-up calls, "
+        f"50 timed), bound {row['bound_ms']:.4f} ms (bytes) = {row['bound_ms'] / row['ms']:.3f} of the time")
+    return dict(
+        name="frames_to_u8", route="cuda", source="nerf_prv_tpu_torch/ops/csrc/frames_u8.cu",
+        replaces="nerf_prv_tpu/nerf/batch_train.py:51",
+        note="numpy on the host in the JAX package (stack_datasets), no XLA op or Pallas kernel; "
+             "plain_ms is frames_to_u8_plain on the card",
+        launches=0, **{k: row[k] for k in
+                       ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=label, shapes=[row],
+    )
+
+
 def spiral_views(n: int, turn: float) -> np.ndarray:
     """``n`` unit view directions on a Fibonacci spiral over the upper
     hemisphere; another ``turn`` gives another, interleaved set."""
@@ -1322,7 +1383,7 @@ STEP_ROWS_FACTOR = 2.0
 
 
 def phase_train(dev, root: str, train_json: str, test_json: str, source: BatchSource,
-                gather: dict, scatter: dict, tight_us: float, card: str):
+                gather: dict, scatter: dict, frames: dict, tight_us: float, card: str):
     cfg = dataclasses.replace(VOXEL_CFG, n_steps=N_STEPS)
     log(f"== phase 5: train the default voxel field, {cfg.n_steps} steps x {cfg.train_rays} rays, "
         f"{N_TRAIN_FRAMES} frames {CAMERA.width}x{CAMERA.height}")
@@ -1340,6 +1401,7 @@ def phase_train(dev, root: str, train_json: str, test_json: str, source: BatchSo
     api_mod.train = recording_train
     row_gather.launches = 0
     row_scatter_add.launches = 0
+    frames_to_u8.launches = 0
     t0 = time.perf_counter()
     try:
         metrics = run(
@@ -1351,6 +1413,10 @@ def phase_train(dev, root: str, train_json: str, test_json: str, source: BatchSo
     sync()
     wall = time.perf_counter() - t0
     gather["launches"], scatter["launches"] = row_gather.launches, row_scatter_add.launches
+    frames["launches"] = frames_to_u8.launches
+    log(f"frames_to_u8 launches in run: {frames['launches']} (need 1: one training's frames)")
+    if frames["launches"] != 1:
+        raise SystemExit("the trainer did not quantise its frames through one frames_to_u8 launch")
     ls = losses[0]
     first, last = float(ls[:20].mean()), float(ls[-100:].mean())
     log(f"run: {wall:.2f} s, metrics {metrics}")
@@ -1886,6 +1952,7 @@ def phase_hash_train(dev, root: str, train_json: str, test_json: str, source: Ba
     api_mod.train = recording_train
     hash_encode.launches = 0
     hash_encode_backward.launches = 0
+    frames_to_u8.launches = 0
     t0 = time.perf_counter()
     try:
         metrics = run(train_json, test_transforms=test_json, save_snapshot_path=snap, cfg=cfg, seed=0, device=dev)
@@ -1893,6 +1960,8 @@ def phase_hash_train(dev, root: str, train_json: str, test_json: str, source: Ba
         api_mod.train = real_train
     sync()
     wall = time.perf_counter() - t0
+    if frames_to_u8.launches != 1:
+        raise SystemExit(f"the hash trainer launched frames_to_u8 {frames_to_u8.launches} times, not once")
     launched = (hash_encode.launches, hash_encode_backward.launches)
     k_hash["launches_serving"] = k_hash["launches"]
     k_hash["launches"], k_bwd["launches"] = launched
@@ -2745,8 +2814,8 @@ def batched_stepper(params, cfg: NerfConfig, obj, seed: int):
     return step
 
 
-def phase_batch_train(dev, root: str, gather: dict, scatter: dict, source: BatchSource, single_ms: float,
-                      card: str):
+def phase_batch_train(dev, root: str, gather: dict, scatter: dict, frames: dict, source: BatchSource,
+                      single_ms: float, card: str):
     cfg = VOXEL_CFG
     k = len(BATCH_FRAMES)
     log(f"== phase 11a: train {k} objects together through train_batch, {cfg.n_steps} steps x {cfg.train_rays} "
@@ -2758,6 +2827,7 @@ def phase_batch_train(dev, root: str, gather: dict, scatter: dict, source: Batch
     datasets = [load_dataset(j) for j in trains]
     row_gather.launches = 0
     row_scatter_add.launches = 0
+    frames_to_u8.launches = 0
     sync()
     t0 = time.perf_counter()
     params, losses = batch_mod.train_batch(datasets, cfg, seed=0, device=dev)
@@ -2765,12 +2835,14 @@ def phase_batch_train(dev, root: str, gather: dict, scatter: dict, source: Batch
     wall = time.perf_counter() - t0
     launched = (row_gather.launches, row_scatter_add.launches)
     gather["launches_batched"], scatter["launches_batched"] = launched
+    frames["launches_batched"] = frames_to_u8.launches
     want = expected_train_launches(cfg)
     log(f"train_batch: {wall:.2f} s for {k} objects, params "
         + ", ".join(f"{name} {tuple(v.shape)}" for name, v in params.items()))
     log(f"launches in train_batch: row_gather {launched[0]}, row_scatter_add {launched[1]} "
-        f"(predicted {want[0]} + {want[1]} for all {k} objects, as for one)")
-    if launched != want:
+        f"(predicted {want[0]} + {want[1]} for all {k} objects, as for one), frames_to_u8 "
+        f"{frames['launches_batched']} (need {k}: one an object)")
+    if launched != want or frames["launches_batched"] != k:
         raise SystemExit("the batched launch counts are not the ones the code predicts")
     if losses.shape != (cfg.n_steps, k) or not np.isfinite(losses).all():
         raise SystemExit(f"batched losses are missing or not finite: {losses.shape}")
@@ -2884,6 +2956,7 @@ def phase_batch_hash(dev, datasets, k_hash: dict, k_bwd: dict, card: str):
     log(f"== phase 11c: train {k} full-width hash fields together, {cfg.n_steps} steps")
     hash_encode.launches = 0
     hash_encode_backward.launches = 0
+    frames_to_u8.launches = 0
     sync()
     t0 = time.perf_counter()
     _, losses = batch_mod.train_batch(datasets[:k], cfg, seed=0, device=dev)
@@ -2896,8 +2969,9 @@ def phase_batch_hash(dev, datasets, k_hash: dict, k_bwd: dict, card: str):
     want_k1, want_bwd = expected_train_launches(cfg)
     want = (k * want_k1, k * want_bwd)
     log(f"train_batch (hash): {wall:.2f} s ({card}); hash_encode {launched[0]}, hash_encode_backward "
-        f"{launched[1]} launches (predicted {want[0]} + {want[1]}: once per object and march)")
-    if launched != want:
+        f"{launched[1]} launches (predicted {want[0]} + {want[1]}: once per object and march), frames_to_u8 "
+        f"{frames_to_u8.launches} (need {k})")
+    if launched != want or frames_to_u8.launches != k:
         raise SystemExit("the batched hash launch counts are not the ones the code predicts")
     if losses.shape != (cfg.n_steps, k) or not np.isfinite(losses).all():
         raise SystemExit("batched hash losses are missing or not finite")
@@ -3023,10 +3097,10 @@ def phase_planning(dev, root: str, card: str):
             raise SystemExit(f"the card's edge matrix disagrees with the scalar local path ({label})")
 
 
-def phase_batch(dev, root: str, source: BatchSource, k_gather: dict, k_scatter: dict, k_hash: dict, k_bwd: dict,
-                single_ms: float, card: str):
+def phase_batch(dev, root: str, source: BatchSource, k_gather: dict, k_scatter: dict, k_frames: dict, k_hash: dict,
+                k_bwd: dict, single_ms: float, card: str):
     t_phase = time.perf_counter()
-    params, cfg, obj, datasets = phase_batch_train(dev, root, k_gather, k_scatter, source, single_ms, card)
+    params, cfg, obj, datasets = phase_batch_train(dev, root, k_gather, k_scatter, k_frames, source, single_ms, card)
     phase_batch_step(dev, params, cfg, obj)
     del params, obj
     phase_batch_hash(dev, datasets, k_hash, k_bwd, card)
@@ -4801,7 +4875,8 @@ def main() -> int:
         k_hash = phase_kernel_check(dev, params, load_dataset(test_json), cfg)
         k_bwd = phase_backward_kernel(dev, params, source, k_hash)
         k_gather, k_scatter, tight_us = phase_row_kernels(dev, source)
-        rows = [r for k in (k_hash, k_bwd, k_gather, k_scatter) for r in k["shapes"]]
+        k_frames = phase_frames_u8(dev)
+        rows = [r for k in (k_hash, k_bwd, k_gather, k_scatter, k_frames) for r in k["shapes"]]
         compared = sum(bool(r.get("call_checked")) for r in rows)
         log(f"device time against call time: compared on {compared} of {len(rows)} shapes")
         if compared == 0:
@@ -4810,7 +4885,7 @@ def main() -> int:
         phase_serve_vs_plain(params, ds, cfg)
         del params
         vparams, vcfg, test_ds, single_ms = phase_train(
-            dev, root, train_json, test_json, source, k_gather, k_scatter, tight_us, card)
+            dev, root, train_json, test_json, source, k_gather, k_scatter, k_frames, tight_us, card)
         phase_step_vs_plain(dev, vparams, vcfg, source, test_ds)
         hparams, hcfg = phase_hash_train(dev, root, train_json, test_json, source, k_hash, k_bwd, card)
         phase_hash_step_vs_plain(dev, hparams, hcfg, source)
@@ -4818,7 +4893,7 @@ def main() -> int:
         phase_options(dev, root, train_json, vparams, vcfg, test_ds, card)
         del vparams
         k_splat, k_cast = phase_coverage(dev, root, card)
-        phase_batch(dev, root, source, k_gather, k_scatter, k_hash, k_bwd, single_ms, card)
+        phase_batch(dev, root, source, k_gather, k_scatter, k_frames, k_hash, k_bwd, single_ms, card)
         phase_prv(dev, root, [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast], card)
         phase_prv_train(dev, root, [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast], card)
         phase_multidevice(dev, root, source, k_gather, k_scatter, card)
@@ -4830,7 +4905,7 @@ def main() -> int:
         phase_hd(dev, root, k_splat, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast]}))
+    print(json.dumps({"kernels": [k_hash, k_bwd, k_gather, k_scatter, k_splat, k_cast, k_frames]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

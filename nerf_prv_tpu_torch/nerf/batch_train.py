@@ -55,27 +55,37 @@ from ..utils.timing import span
 from .model import NerfConfig, init_params
 from .rays import RayDataset, rays_from_pixels
 from .render import render_rays
-from .train import _blend_target, _huber, _phases, _pool_ray_batch, build_hit_pool, make_optimizer
+from .train import _blend_target, _huber, _phases, _pool_ray_batch, build_hit_pool, make_optimizer, quantise_frames
 
 
-def stack_datasets(datasets: Sequence[RayDataset]):
-    """Pad + stack K datasets -> (pixels (K, F, H, W, 4) uint8, rotations
-    (K, F, 3, 3), origins (K, F, 3), frame counts (K,)), F the largest
-    count; padded frames are black with identity rotations."""
+def _stack_cameras(datasets: Sequence[RayDataset]):
+    """Pad + stack K datasets' cameras -> (rotations (K, F, 3, 3), origins
+    (K, F, 3), frame counts (K,)), F the largest count; padded frames have
+    identity rotations."""
     max_f = max(ds.n_frames for ds in datasets)
-    h, w = datasets[0].hw
     k = len(datasets)
-    pixels = np.zeros((k, max_f, h, w, 4), np.uint8)
     rot = np.zeros((k, max_f, 3, 3), np.float32)
     org = np.zeros((k, max_f, 3), np.float32)
     n_frames = np.zeros((k,), np.int32)
     for i, ds in enumerate(datasets):
         f = ds.n_frames
-        pixels[i, :f] = np.clip(np.asarray(ds.pixels) * 255.0 + 0.5, 0, 255).astype(np.uint8)
         rot[i, :f] = ds.rotations
         org[i, :f] = ds.origins
         rot[i, f:] = np.eye(3)  # harmless padding
         n_frames[i] = f
+    return rot, org, n_frames
+
+
+def stack_datasets(datasets: Sequence[RayDataset]):
+    """Pad + stack K datasets -> (pixels (K, F, H, W, 4) uint8, rotations
+    (K, F, 3, 3), origins (K, F, 3), frame counts (K,)), F the largest
+    count; padded frames are black with identity rotations.  The host's
+    definition of the frames :func:`upload_objects` quantises on the device."""
+    rot, org, n_frames = _stack_cameras(datasets)
+    h, w = datasets[0].hw
+    pixels = np.zeros((len(datasets), rot.shape[1], h, w, 4), np.uint8)
+    for i, ds in enumerate(datasets):
+        pixels[i, : ds.n_frames] = np.clip(np.asarray(ds.pixels) * 255.0 + 0.5, 0, 255).astype(np.uint8)
     return pixels, rot, org, n_frames
 
 
@@ -96,27 +106,37 @@ class Objects(NamedTuple):
 
 
 def upload_objects(datasets: Sequence[RayDataset], cfg: NerfConfig, device="cuda") -> Objects:
-    """Stack the datasets and move them to ``device``; with the sphere bound,
-    build each object's hit pool over its real frames only."""
+    """Stack the datasets on ``device``, their frames quantised to uint8
+    there (as :func:`stack_datasets` does on the host) one object at a time
+    through one reused float32 staging buffer; with the sphere bound, build
+    each object's hit pool over its real frames only.  Nothing is kept
+    between calls."""
     device = torch.device(device)
-    pixels, rot, org, n_frames = stack_datasets(datasets)
-    k, f, h, w = pixels.shape[:4]
+    rot, org, n_frames = _stack_cameras(datasets)
+    k, f = n_frames.shape[0], rot.shape[1]
+    h, w = datasets[0].hw
     camera = datasets[0].camera
-    px = torch.from_numpy(pixels).to(device).reshape(k * f, h, w, 4)
+    with span("train.frames"):
+        px = torch.zeros((k * f, h, w, 4), dtype=torch.uint8, device=device)  # padded frames stay black
+        staging = None if device.type == "cpu" else torch.empty((f, h, w, 4), dtype=torch.float32, device=device)
+        for i, ds in enumerate(datasets):
+            quantise_frames(ds.pixels, px[i * f : i * f + ds.n_frames], staging)
+        del staging
     rot_t = torch.from_numpy(rot).to(device).reshape(k * f, 3, 3)
     org_t = torch.from_numpy(org).to(device).reshape(k * f, 3)
     pools = n_hit = None
     if cfg.bound == "sphere":
-        dtype = torch.int32 if k * f * h * w < 2**31 else torch.int64
-        pools = torch.zeros((k, f * h * w), dtype=dtype, device=device)
-        hits = []
-        for i in range(k):
-            lo, hi = i * f, i * f + int(n_frames[i])
-            pool, n = build_hit_pool(rot_t[lo:hi], org_t[lo:hi], camera)
-            pools[i] = lo * h * w  # a scene with no hit draws its own first pixel
-            pools[i, :n] += pool[:n].to(dtype)
-            hits.append(max(n, 1))
-        n_hit = torch.tensor(hits, dtype=torch.float64, device=device)
+        with span("train.pools"):
+            dtype = torch.int32 if k * f * h * w < 2**31 else torch.int64
+            pools = torch.zeros((k, f * h * w), dtype=dtype, device=device)
+            hits = []
+            for i in range(k):
+                lo, hi = i * f, i * f + int(n_frames[i])
+                pool, n = build_hit_pool(rot_t[lo:hi], org_t[lo:hi], camera)
+                pools[i] = lo * h * w  # a scene with no hit draws its own first pixel
+                pools[i, :n] += pool[:n].to(dtype)
+                hits.append(max(n, 1))
+            n_hit = torch.tensor(hits, dtype=torch.float64, device=device)
     counts = torch.as_tensor(n_frames, dtype=torch.float64, device=device)
     return Objects(px, rot_t, org_t, counts, pools, n_hit, camera)
 

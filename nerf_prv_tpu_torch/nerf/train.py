@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.frames_u8 import frames_to_u8
 from .model import NerfConfig, init_params
 from .rays import RayDataset, pixel_dirs_cam, ray_sphere, rays_from_pixels
 from .render import render_rays
@@ -123,6 +124,21 @@ def build_hit_pool(rot, org, camera):
     pool = torch.zeros((valid.numel(),), dtype=torch.int32, device=dev)
     pool[:n_hit] = hits
     return pool, n_hit
+
+
+def quantise_frames(pixels: np.ndarray, out: torch.Tensor, staging: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Write one object's frames ``pixels`` (F, H, W, 4), float32 in [0, 1]
+    on the host, into ``out`` (F, H, W, 4) uint8 on its device as
+    ``uint8(clamp(x * 255 + 0.5, 0, 255))``, byte-equal to that formula in
+    numpy; returns ``out``.  On a card the float32 frames are copied into
+    ``staging`` (a float32 tensor there of at least F frames of the same
+    size, or a new one) and quantised there by ``frames_to_u8``'s kernel."""
+    src = torch.from_numpy(np.ascontiguousarray(pixels, dtype=np.float32))
+    if out.device.type != "cpu":
+        if staging is None:
+            staging = torch.empty(src.shape, dtype=torch.float32, device=out.device)
+        src = staging[: src.shape[0]].copy_(src)
+    return frames_to_u8(src, out)
 
 
 def _pool_ray_batch(flat_idx, pixels_u8, rot, org, camera):
@@ -261,8 +277,7 @@ def train(
         v.requires_grad_(True)
     opt = make_optimizer(params, cfg)
 
-    pixels_np = np.clip(np.asarray(dataset.pixels) * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    pixels_u8 = torch.from_numpy(pixels_np).to(device)
+    pixels_u8 = quantise_frames(dataset.pixels, torch.empty(np.shape(dataset.pixels), dtype=torch.uint8, device=device))
     rot = torch.as_tensor(np.asarray(dataset.rotations, np.float32), device=device)
     org = torch.as_tensor(np.asarray(dataset.origins, np.float32), device=device)
     camera = dataset.camera

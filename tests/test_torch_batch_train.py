@@ -131,6 +131,38 @@ def test_stack_datasets_equal_to_jax(scenes):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("bound", ["sphere", "cube"])
+def test_upload_objects_pixels_equal_stack_datasets(scenes, bound):
+    """The frames quantised one object at a time into the device's tensor
+    (here the plain path) are ``stack_datasets``' numpy frames, padding
+    (5 and 8 frames: three black frames for the first object) included."""
+    (a, _), (b, _) = scenes
+    _, tcfg = _cfgs("voxel")
+    ds = [tr.load_dataset(a), tr.load_dataset(b)]
+    want, rot, org, n_frames = tbt.stack_datasets(ds)
+    obj = tbt.upload_objects(ds, dataclasses.replace(tcfg, bound=bound), device="cpu")
+    assert obj.pixels.dtype == torch.uint8 and obj.pixels.is_contiguous()
+    np.testing.assert_array_equal(obj.pixels.numpy(), want.reshape(-1, *want.shape[2:]))
+    assert not want[0, 5:].any()
+    np.testing.assert_array_equal(obj.rot.numpy(), rot.reshape(-1, 3, 3))
+    np.testing.assert_array_equal(obj.org.numpy(), org.reshape(-1, 3))
+    np.testing.assert_array_equal(obj.n_frames.numpy(), n_frames)
+    assert (obj.pools is None) == (bound == "cube")
+
+
+def test_upload_objects_keeps_nothing_between_calls(scenes):
+    """A second call on the same datasets sees a frame changed in place."""
+    (a, _), (b, _) = scenes
+    _, tcfg = _cfgs("voxel")
+    ds = [tr.load_dataset(a), tr.load_dataset(b)]
+    first = tbt.upload_objects(ds, tcfg, device="cpu").pixels.clone()
+    ds[1].pixels[3, 10:20, 5:9] = 1.0 - ds[1].pixels[3, 10:20, 5:9]
+    second = tbt.upload_objects(ds, tcfg, device="cpu").pixels
+    np.testing.assert_array_equal(second.numpy(), tbt.stack_datasets(ds)[0].reshape(-1, *second.shape[1:]))
+    changed = (first != second).any(-1).nonzero()
+    assert changed.shape[0] > 0 and set(changed[:, 0].tolist()) == {8 + 3}
+
+
 @pytest.mark.parametrize("field", ["voxel", "hash"])
 def test_batched_step_matches_jax_per_object(field):
     """One batched step's per-object losses and gradients against JAX's
@@ -420,8 +452,9 @@ def _children(got, parent):
 
 
 def test_train_batch_records_its_spans_under_one_root(scenes):
-    """One ``train_batch`` root, one ``train.prep`` and a ``train.step`` a
-    step, each step with its four children, all under the root."""
+    """One ``train_batch`` root, one ``train.prep`` (its frames and its hit
+    pools as children) and a ``train.step`` a step, each step with its four
+    children, all under the root."""
     (a, _), (b, _) = scenes
     _, tcfg = _cfgs("voxel", n_steps=5, train_rays=64, train_warmup_steps=2, train_warmup_samples=8)
     ds = [tr.load_dataset(a), tr.load_dataset(b)]
@@ -433,10 +466,11 @@ def test_train_batch_records_its_spans_under_one_root(scenes):
     steps = [s for s in got if s.name == "train.step"]
     assert len(steps) == 5 and prep.parent == root.id and all(s.parent == root.id for s in steps)
     assert _children(got, root) == ["train.prep"] + ["train.step"] * 5
+    assert _children(got, prep) == ["train.frames", "train.pools"]
     for s in steps:
         assert _children(got, s) == ["train.adam", "train.backward", "train.forward", "train.sample"]
         assert prep.end_ns <= s.start_ns and root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
-    assert len(got) == 2 + 5 * 5
+    assert len(got) == 4 + 5 * 5
 
 
 @pytest.mark.parametrize("field", ["voxel", "hash"])

@@ -15,11 +15,13 @@ import pytest
 import torch
 
 from nerf_prv_tpu_torch.nerf.hashgrid import HashGridConfig, encode
+from nerf_prv_tpu_torch.ops.frames_u8 import frames_to_u8
 from nerf_prv_tpu_torch.ops.fused import encode_fused
 from nerf_prv_tpu_torch.ops.hash_encode import hash_encode, hash_encode_backward
 from nerf_prv_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from nerf_prv_tpu_torch.ops.row_scatter_add import row_scatter_add, row_scatter_add_plain
 from nerf_prv_tpu_torch.ops.sorted_grad import _levelwise_indices_weights, table_grad_sorted
+from test_torch_frames_u8 import EDGE_VALUES, as_frames, numpy_u8
 from test_torch_kernel_mirrors import BIN_CAMERA, GRIDS, _border_cloud, _rays
 from test_torch_kernel_mirrors import _poses as _mirror_poses
 
@@ -878,3 +880,74 @@ def test_train_regression_defaults_to_the_card(cuda_device, tmp_path):
                                           cfg=cfg, pattern=[0, 1], checkpoint_dir=str(tmp_path / "ckpt"))
     assert {p.device for p in model.parameters()} == {torch.device("cuda", 0)}
     assert math.isfinite(best["l1_mean"]) and (tmp_path / "ckpt" / "best_checkpoint.msgpack").exists()
+
+
+def _frames_case(case, rng):
+    """(source frames, destination shape, the destination's frame offset in
+    a larger tensor): the edge values; a random 16-frame 1280x720 set; a
+    frame count and an element count (420) that are not multiples of the
+    16-element vector; a destination that starts 140 bytes into its tensor,
+    off the 16-byte alignment the vectors need."""
+    if case in EDGE_VALUES:
+        return as_frames(EDGE_VALUES[case]), 0
+    if case == "random_16x720x1280":
+        return rng.random((16, 720, 1280, 4), dtype=np.float32), 0
+    x = rng.random((3, 5, 7, 4), dtype=np.float32) * 1.2 - 0.1
+    x.reshape(-1)[:16] = EDGE_VALUES["halves"][250:266]
+    return x, (1 if case == "unaligned_destination" else 0)
+
+
+@pytest.mark.parametrize("case", [*EDGE_VALUES, "random_16x720x1280", "ragged", "unaligned_destination"])
+def test_frames_to_u8_kernel_equals_numpy(cuda_device, case):
+    """Byte-equal to numpy's float32 formula: no FMA contraction, clamped
+    and truncated as ``astype(np.uint8)``; one launch, nothing outside the
+    destination written."""
+    x, offset = _frames_case(case, np.random.default_rng(5))
+    whole = torch.full((x.shape[0] + 2 * offset, *x.shape[1:]), 7, dtype=torch.uint8, device=cuda_device)
+    out = whole[offset : offset + x.shape[0]]
+    before = frames_to_u8.launches
+    frames_to_u8(torch.from_numpy(x).to(cuda_device), out)
+    torch.cuda.synchronize()
+    assert frames_to_u8.launches == before + 1
+    np.testing.assert_array_equal(out.cpu().numpy(), numpy_u8(x))
+    assert bool((whole[:offset] == 7).all()) and bool((whole[offset + x.shape[0]:] == 7).all())
+
+
+def test_frames_to_u8_kernel_rejects_and_skips(cuda_device):
+    """Non-float32 and non-contiguous sources raise; an empty one launches
+    nothing and counts nothing."""
+    out = torch.empty((2, 3, 5, 4), dtype=torch.uint8, device=cuda_device)
+    before = frames_to_u8.launches
+    with pytest.raises(ValueError):
+        frames_to_u8(torch.rand((2, 3, 5, 4), device=cuda_device, dtype=torch.float64), out)
+    with pytest.raises(ValueError):
+        frames_to_u8(torch.rand((2, 5, 3, 4), device=cuda_device).transpose(1, 2), out)
+    empty = torch.empty((0, 3, 5, 4), dtype=torch.uint8, device=cuda_device)
+    assert frames_to_u8(torch.empty((0, 3, 5, 4), device=cuda_device), empty) is empty
+    assert frames_to_u8.launches == before
+
+
+def test_upload_objects_card_equals_cpu(cuda_device):
+    """K = 3 objects of 2, 5 and 3 frames: the card's quantised frames (one
+    launch an object), hit pools and pool lengths equal the CPU's."""
+    from nerf_prv_tpu_torch.core.config import CameraConfig
+    from nerf_prv_tpu_torch.nerf.batch_train import upload_objects
+    from nerf_prv_tpu_torch.nerf.model import NerfConfig
+    from nerf_prv_tpu_torch.nerf.rays import RayDataset
+
+    cam = CameraConfig(width=24, height=16, fx=20.0, fy=20.0, ppx=12.0, ppy=8.0, model=0)
+    rng = np.random.default_rng(6)
+    datasets = [
+        RayDataset(origins=(np.array([0.5, 0.5, -0.6]) + rng.normal(size=(f, 3)) * 0.05).astype(np.float32),
+                   rotations=np.tile(np.eye(3, dtype=np.float32), (f, 1, 1)),
+                   pixels=rng.integers(0, 256, (f, 16, 24, 4)).astype(np.float32) / np.float32(255.0),
+                   camera=cam, scale=1.0, offset=np.zeros(3, np.float32))
+        for f in (2, 5, 3)
+    ]
+    before = frames_to_u8.launches
+    card = upload_objects(datasets, NerfConfig(), device=cuda_device)
+    assert frames_to_u8.launches == before + 3
+    cpu = upload_objects(datasets, NerfConfig(), device="cpu")
+    assert card.pixels.shape == (15, 16, 24, 4) and bool((cpu.n_hit > 1).all())
+    for name in ("pixels", "rot", "org", "n_frames", "pools", "n_hit"):
+        np.testing.assert_array_equal(getattr(card, name).cpu().numpy(), getattr(cpu, name).numpy(), err_msg=name)
