@@ -21,6 +21,8 @@ import time
 import numpy as np
 import torch
 
+# the NeRF kinds read one configuration and share one CPU cut
+from kinds.train_batch import CONFIG_KEYS, cpu_cut  # noqa: F401
 from lib import arith, program, scene
 from lib.clock import log
 from lib.reference import Ref, TrainData, eval_views

@@ -22,6 +22,22 @@ from lib import arith, program, scene
 from lib.clock import log
 from lib.reference import Ref, TrainData
 
+# the configuration keys the NeRF kinds read (``train_batch`` and ``eval``)
+CONFIG_KEYS = {"nerf": ("field_impl", "hidden", "n_steps", "train_rays", "compute_dtype"), "kernels": ()}
+CPU_CAMERA = dict(width=64, height=36, fx=915.606689453125 / 20, fy=913.32666015625 / 20,
+                  ppx=647.1453247070312 / 20, ppy=372.51531982421875 / 20)
+
+
+def cpu_cut(cell):
+    """A NeRF cell at a CPU size for the tests: a 12^3 voxel grid, a
+    2^12-entry hash table a level, 12 steps of 128 rays, 2 objects of 3
+    views at 64x36."""
+    nerf = dict(cell.config["nerf"], voxel_grid_size=12, train_rays=128, n_steps=12, train_warmup_steps=4,
+                train_warmup_samples=8, n_samples=6, train_coarse=4, render_coarse=6, render_probe_fine=6,
+                grid=dict(cell.config["nerf"]["grid"], log2_table=12))
+    tr = dict(cell.traffic, objects=2, train_views=3, test_views=3, points=3000, camera=CPU_CAMERA)
+    return cell._replace(config=dict(cell.config, nerf=nerf), traffic=tr)
+
 
 class Runner:
     unit = "object-steps"

@@ -2,11 +2,13 @@
 device time by kernel, the device's busy time, the idle gaps by what the host
 was doing, and the port's own kernel launches with their inputs.
 
-The launches are read where they happen: ``sys.monitoring`` calls back at
-the start of each kernel wrapper of the port (found by its code object,
-wherever it is called from) and keeps what the launch's bound needs (its
-indices, or its sizes), so that a launch's bytes can be counted from its own
-indices once the call is over.
+The port's own kernels are the registry files ``kernels/<wrapper>.py``
+(``spec.kernels``): each names the wrapper's module, the kernel's name in the
+trace and what a launch's bound needs.  The launches are read where they
+happen: ``sys.monitoring`` calls back at the start of each wrapper (found by
+its code object, wherever it is called from) and keeps the registry's record
+of the launch (its indices, or its sizes), so that a launch's bytes can be
+counted from its own indices once the call is over.
 The i-th recorded launch of a wrapper is the i-th kernel of that name on
 the device (one stream, in order).  The trace counts as complete when the
 own kernels it saw equal the wrappers' launch counters (``chip_smoke.py``'s
@@ -23,14 +25,11 @@ from typing import Callable, Dict, List, NamedTuple
 
 import torch
 
-# wrapper name -> (module, kernel name in the trace); the wrappers count
-# their own launches in ``<wrapper>.launches``
-OWN_KERNELS = {
-    "hash_encode_backward": ("nerf_prv_tpu_torch.ops.hash_encode", "hash_encode_backward_kernel"),
-    "hash_encode": ("nerf_prv_tpu_torch.ops.hash_encode", "hash_encode_kernel"),
-    "row_scatter_add": ("nerf_prv_tpu_torch.ops.row_scatter_add", "row_scatter_add_kernel"),
-    "row_gather": ("nerf_prv_tpu_torch.ops.row_gather", "row_gather_kernel"),
-}
+from .spec import kernels
+
+# wrapper name -> its registry file; the wrappers count their own launches
+# in ``<wrapper>.launches``
+OWN_KERNELS = kernels()
 FAMILIES = (  # first match wins (chip_smoke.py's _FAMILIES)
     ("GEMMs", ("gemm", "nvjet", "cutlass", "cublas", "splitK")),
     ("Adam", ("multi_tensor_apply",)),
@@ -43,9 +42,18 @@ _TOOL = 4
 
 
 def wrappers() -> Dict[str, Callable]:
+    """Each registry file's wrapper; a port module or wrapper that is absent
+    is an error: a kernel the registry names is never skipped."""
     import importlib
 
-    return {name: getattr(importlib.import_module(mod), name) for name, (mod, _) in OWN_KERNELS.items()}
+    out = {}
+    for name, k in OWN_KERNELS.items():
+        try:
+            fn = getattr(importlib.import_module(k.MODULE), name)
+        except (ImportError, AttributeError) as e:
+            raise RuntimeError(f"kernels/{name}.py names the wrapper {k.MODULE}.{name}, which is absent") from e
+        out[name] = fn
+    return out
 
 
 def launch_counts() -> Dict[str, int]:
@@ -53,11 +61,10 @@ def launch_counts() -> Dict[str, int]:
 
 
 def own_kernel(name: str) -> str:
-    """The wrapper whose kernel this trace name is, or ''."""
-    for wrapper, (_, kernel) in OWN_KERNELS.items():
-        if kernel in name:
-            return wrapper
-    return ""
+    """The wrapper whose kernel this trace name is (the longest kernel name
+    in it), or ''."""
+    found = [(len(k.KERNEL), wrapper) for wrapper, k in OWN_KERNELS.items() if k.KERNEL in name]
+    return max(found)[1] if found else ""
 
 
 def family(name: str) -> str:
@@ -79,7 +86,7 @@ class Recorder:
 
     def _start(self, code, offset):
         name = self.codes[code]
-        self.calls[name].append(_launch_record(name, sys._getframe(1).f_locals, len(self.calls[name])))
+        self.calls[name].append(OWN_KERNELS[name].record(sys._getframe(1).f_locals, len(self.calls[name])))
 
     def __enter__(self):
         mon = sys.monitoring
@@ -151,26 +158,6 @@ def profile(fn: Callable, tries: int = 3) -> Trace:
     return Trace(device, dict(host), launches, counted, complete, wall, attempt)
 
 
-# a hash encode's points are kept for one launch in this many (the roofline
-# reader samples them); the rest of a launch is kept as sizes
-KEEP_POINTS_EVERY = 8
-
-
-def _launch_record(name: str, args: dict, i: int) -> dict:
-    """What a launch's bound needs, without holding its large tensors: a
-    gather's indices (its distinct rows are counted afterwards) and row
-    size, a scatter-add's sizes, an encode's points (one launch in
-    ``KEEP_POINTS_EVERY``) and their count."""
-    if name == "row_gather":
-        t = args["table"]
-        return dict(n=args["idx"].shape[0], idx=args["idx"], row_bytes=t.shape[1] * t.element_size())
-    if name == "row_scatter_add":
-        idx, upd = args["idx"], args["upd"]
-        return dict(n=idx.shape[0], idx_bytes=idx.element_size(), width=upd.shape[1], n_rows=args["n_rows"])
-    x = args["x"]
-    return dict(n=x.shape[0], x=x if i % KEEP_POINTS_EVERY == 0 else None)
-
-
 def busy_ns(ops: List[Op]) -> int:
     """Length of the union of the device ops' intervals."""
     total, cur_s, cur_e = 0, None, None
@@ -188,14 +175,15 @@ def busy_ns(ops: List[Op]) -> int:
 
 def kernel_times(trace: Trace, wrapper: str) -> List[int]:
     """Device ns of each launch of ``wrapper``, in order, counting the
-    memset that a scatter-add or a table gradient issues just before its
-    kernel (the wrapper zeroes its output that way)."""
+    memset just before its kernel where its registry file says the wrapper
+    zeroes its output that way (a scatter-add, a table gradient)."""
     out = []
     ops = trace.device_ops
+    memset = OWN_KERNELS[wrapper].MEMSET_BEFORE
     for i, op in enumerate(ops):
         if own_kernel(op.name) == wrapper:
             ns = op.end - op.start
-            if wrapper in ("row_scatter_add", "hash_encode_backward") and i and "Memset" in ops[i - 1].name:
+            if memset and i and "Memset" in ops[i - 1].name:
                 ns += ops[i - 1].end - ops[i - 1].start
             out.append(ns)
     return out

@@ -19,7 +19,7 @@ def read(run):
     if t is None or pk is None or not t.complete:
         return None
     hbm, f32 = pk["hbm_bytes_per_s"], pk["f32_flops_per_s"]
-    grid = run.nerf["grid"]
+    grid = run.cell.config["nerf"]["grid"]
     bound = ns = 0.0
     for name in ("hash_encode", "hash_encode_backward"):
         pairs = [(a, dt) for a, dt in zip(t.launches.get(name, []), kernel_times(t, name)) if a["x"] is not None]

@@ -198,7 +198,7 @@ def result_line(cell, args, r: dict, dev_info: dict) -> dict:
     line = dict(correct=correct, attempted=r["calls"], failed=0 if correct else r["answers"])
     if args.trace:
         t = r["trace"]
-        run = SimpleNamespace(cell=cell, nerf=cell.config["nerf"], runner=runner, calls=r["calls"],
+        run = SimpleNamespace(cell=cell, runner=runner, calls=r["calls"],
                               wall_s=r["wall_s"], launches=r["launches"], trace=t,
                               peaks=arith.peaks(dev_info["kind"]))
         metrics = {}

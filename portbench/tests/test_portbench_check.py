@@ -19,7 +19,8 @@ SEED = 2**31 + 12345
 TRAIN = dict(objects=2, train_views=3)
 EVAL = dict(test_views=4, camera=dict(width=160, height=90, fx=915.606689453125 / 8, fy=913.32666015625 / 8,
                                       ppx=647.1453247070312 / 8, ppy=372.51531982421875 / 8))
-CELLS = {"voxel-train-k24": TRAIN, "hash-train-k8": TRAIN, "voxel-eval": EVAL, "hash-eval": EVAL}
+CELLS = {"voxel-train-k24": TRAIN, "hash-train-k8": TRAIN, "hash-train-k24": TRAIN, "voxel-eval": EVAL,
+         "hash-eval": EVAL}
 
 
 def cell(name):
@@ -46,7 +47,7 @@ def _program_in_control_out(c, device):
 
 # hash-eval's one compared number, SSIM, separates float8 from bfloat16 only
 # at the cell's size (at the CPU's, float8 moves its SSIM less than bfloat16)
-@pytest.mark.parametrize("name", ["voxel-train-k24", "hash-train-k8", "voxel-eval"])
+@pytest.mark.parametrize("name", ["voxel-train-k24", "hash-train-k8", "hash-train-k24", "voxel-eval"])
 def test_program_within_limits_control_outside(name):
     _program_in_control_out(cell(name), CPU)
 
@@ -99,11 +100,11 @@ def _half_frames(orig):
     return evaluate_pair
 
 
+TRAIN_CELLS = ("voxel-train-k24", "hash-train-k8", "hash-train-k24")
 FAULTS = [
-    ("voxel-train-k24", "nerf_prv_tpu_torch.nerf.batch_train", "make_optimizer", lambda orig: (lambda p, cfg: _Frozen(list(p.values())))),
-    ("hash-train-k8", "nerf_prv_tpu_torch.nerf.batch_train", "make_optimizer", lambda orig: (lambda p, cfg: _Frozen(list(p.values())))),
-    ("voxel-train-k24", "nerf_prv_tpu_torch.nerf.batch_train", "batch_loss", _half_batch_loss),
-    ("hash-train-k8", "nerf_prv_tpu_torch.nerf.batch_train", "batch_loss", _half_batch_loss),
+    *[(name, "nerf_prv_tpu_torch.nerf.batch_train", "make_optimizer", lambda orig: (lambda p, cfg: _Frozen(list(p.values()))))
+      for name in TRAIN_CELLS],
+    *[(name, "nerf_prv_tpu_torch.nerf.batch_train", "batch_loss", _half_batch_loss) for name in TRAIN_CELLS],
     ("voxel-eval", "nerf_prv_tpu_torch.nerf.api", "render_views", _altered_frame),
     ("hash-eval", "nerf_prv_tpu_torch.nerf.api", "render_views", _altered_frame),
     ("voxel-eval", "nerf_prv_tpu_torch.nerf.api", "evaluate_pair", _half_frames),

@@ -50,10 +50,16 @@ def test_run_guards_on_whole_names(monkeypatch):
     assert run.loaded_forbidden() == ["jaxlib", "nerf_prv_tpu"]
 
 
+REFERENCES = sorted((spec.HERE / "lib").glob("reference*.py")) + [spec.HERE / "lib" / "scene.py"]
+
+
 def test_reference_imports_nothing_of_the_program():
-    loaded = _loaded_after("import sys; sys.path[:0] = ['.']\nimport lib.reference, lib.scene")
+    """Every plain reference (``lib/reference*.py``) and the scenes it is
+    handed."""
+    modules = ", ".join(f"lib.{p.stem}" for p in REFERENCES)
+    loaded = _loaded_after(f"import sys; sys.path[:0] = ['.']\nimport {modules}")
     assert not loaded & (FORBIDDEN | {"nerf_prv_tpu_torch"})
-    for path in (spec.HERE / "lib" / "reference.py", spec.HERE / "lib" / "scene.py"):
+    for path in REFERENCES:
         tree = ast.parse(path.read_text())
         names = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
         names |= {(n.module or "").split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and not n.level}

@@ -30,11 +30,17 @@ def test_names_unique_and_plain(kind):
 
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_file_resolves(config):
+    """The file holds the keys that the kind of each cell run on it reads
+    (its runner module's ``CONFIG_KEYS``), and no others are required."""
     data = spec.load_json(spec.ROOT / config["file"])
     assert data["name"] == config["name"]
     assert sorted(data["reduced"]) == sorted(config["reduced"])
     assert all(NAME.match(k) for k in config["reduced"])
-    assert set(data["nerf"]) >= {"field_impl", "hidden", "n_steps", "train_rays", "compute_dtype"}
+    kinds = {spec.cell(w["name"]).traffic["kind"] for w in BENCH["workloads"] if w["config"] == config["name"]}
+    assert kinds, "every configuration is used by a cell"
+    for kind in sorted(kinds):
+        for key, inner in spec.runner(kind).CONFIG_KEYS.items():
+            assert key in data and set(data[key]) >= set(inner), (kind, key)
     assert set(config) == {"name", "source", "file", "reduced", "why"}
 
 
@@ -42,8 +48,8 @@ def test_config_file_resolves(config):
 def test_cell_resolves(cell):
     c = spec.cell(cell["name"])
     assert c.chips == 1
-    assert c.traffic["kind"] in ("train_batch", "eval")
-    assert hasattr(spec.runner(c.traffic["kind"]), "Runner")  # found by the traffic's kind
+    kind = spec.runner(c.traffic["kind"])  # found by the traffic's kind, whatever it is
+    assert hasattr(kind, "Runner") and callable(kind.cpu_cut) and isinstance(kind.CONFIG_KEYS, dict)
     ends = {m["name"] for m in c.end_to_end}
     assert "setup_s" in ends and c.traffic["rate_metric"] in ends and len(ends) == 2
     assert c.per_layer, "every cell reports a per-layer metric"
